@@ -35,7 +35,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C function -> (source, argtypes)
 FUNCTIONS = {
     "warp_linear_f32": ("warp", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
-                                 _P]),
+                                 _LL, _LL, _P]),
     "warp_nearest_i32": ("warp", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
     "lut_gather_f32": ("lut", [_P, _P, _P, _I, _I, _LL, _P]),
     "lut_gather_i32": ("lut", [_P, _P, _P, _I, _I, _LL, _P]),

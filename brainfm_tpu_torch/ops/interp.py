@@ -19,17 +19,22 @@ def _flat_gather(vol_flat, d, h, w, H, W):
 def trilinear3d(vol, ii, jj, kk, default=0.0):
     """Trilinear sample of `vol` (D,H,W) or (D,H,W,C) at float coords.
 
-    Out of bounds (ii<=0 or ii>D-1, likewise jj, kk: the reference's strict
-    lower bound) gives `default`: a scalar, or a (C,) vector of per-channel
-    defaults. Returns coords.shape (+ (C,) if vol has channels)."""
+    Out of bounds (ii < tiny or ii > D-1, likewise jj, kk) gives `default`:
+    a scalar, or a (C,) vector of per-channel defaults. `tiny` is the
+    smallest normal float of the coordinates' type (FLT_MIN for float32):
+    the reference tests `ii > 0` under XLA, which flushes denormals to zero,
+    so a denormal coordinate is out of bounds there; `ii >= tiny` is that
+    same test without the flush. Returns coords.shape (+ (C,) if vol has
+    channels)."""
     squeeze = vol.dim() == 3
     if squeeze:
         vol = vol[..., None]
     D, H, W, C = vol.shape
     vol_flat = vol.reshape(D * H * W, C)
 
-    ok = ((ii > 0) & (jj > 0) & (kk > 0) & (ii <= D - 1) & (jj <= H - 1)
-          & (kk <= W - 1))
+    tiny = torch.finfo(ii.dtype).tiny
+    ok = ((ii >= tiny) & (jj >= tiny) & (kk >= tiny) & (ii <= D - 1)
+          & (jj <= H - 1) & (kk <= W - 1))
 
     iic = ii.clamp(0.0, D - 1)
     jjc = jj.clamp(0.0, H - 1)
@@ -72,7 +77,9 @@ def trilinear3d(vol, ii, jj, kk, default=0.0):
 
 
 def nearest3d(vol, ii, jj, kk):
-    """Nearest-neighbour sample: round half to even, then clip."""
+    """Nearest-neighbour sample: round half to even, then clip. A denormal
+    coordinate rounds to 0 with or without a flush to zero, so this needs
+    no lower-bound care (see trilinear3d)."""
     squeeze = vol.dim() == 3
     if squeeze:
         vol = vol[..., None]

@@ -11,16 +11,22 @@ overflow count and an exact-gather fallback (`_overflow_guard`) only
 because Mosaic cannot gather: its kernel reads a static patch of the
 source per output tile. The CUDA kernel gathers directly, has no static
 patch and nothing to overflow, so these functions return the warped volume
-only. The kernel's bound on the H100 is bytes: source, coordinates and
-output each moved once.
+only. The kernel's bound on the H100 is bytes: the source voxels that the
+corners touch, the coordinates and the output, each moved once.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .. import kernels
 from .interp import nearest3d, trilinear3d
+
+
+# csrc/warp.cu: one thread per channel of a voxel, 384 threads a block
+MAX_CHANNELS = 384
 
 
 def _check_cuda(name, vol, grid, vol_dtype):
@@ -44,23 +50,39 @@ def _check_cuda(name, vol, grid, vol_dtype):
     return D, H, W, C, out_shape
 
 
+def _grid_dims(shape):
+    """The coordinates' shape as the kernel's output grid (Do, Ho, Wo):
+    leading dimensions fold into Do, and fewer than three dimensions pad
+    with 1 at the front."""
+    dims = (1, 1, 1, *shape)
+    return math.prod(dims[:-2]), dims[-2], dims[-1]
+
+
 def warp_volume(vol, grid, default=0.0, approx=False):
     """Trilinear warp of a float32 volume (D,H,W[,C]) at the source
     coordinates `grid` = (ii, jj, kk); `default` is a scalar or a (C,)
-    vector. `approx` selected a bf16 mode of the TPU kernel; the CUDA
-    kernel always accumulates in fp32, so it has no effect here."""
+    vector; on CUDA at most MAX_CHANNELS channels. `approx` selected a bf16
+    mode of the TPU kernel; the CUDA kernel always accumulates in fp32, so
+    it has no effect here."""
     del approx
     ii, jj, kk = grid
     if vol.device.type == "cpu" and all(c.device.type == "cpu" for c in grid):
         return trilinear3d(vol, ii, jj, kk, default)
     D, H, W, C, out_shape = _check_cuda("warp_volume", vol, grid,
                                         torch.float32)
-    dflt = torch.as_tensor(default, dtype=torch.float32, device=vol.device)
-    dflt = dflt.reshape(-1).expand(C).contiguous()
+    if C > MAX_CHANNELS:
+        raise ValueError(f"warp_volume: {C} channels, the kernel takes at "
+                         f"most {MAX_CHANNELS}")
+    if isinstance(default, (int, float)):   # filled on the device: no copy
+        dflt = torch.full((C,), float(default), device=vol.device)
+    else:
+        dflt = torch.as_tensor(default, dtype=torch.float32,
+                               device=vol.device)
+        dflt = dflt.reshape(-1).expand(C).contiguous()
     out = torch.empty(out_shape, dtype=torch.float32, device=vol.device)
     kernels.launch("warp_linear_f32", vol.data_ptr(), ii.data_ptr(),
                    jj.data_ptr(), kk.data_ptr(), dflt.data_ptr(),
-                   out.data_ptr(), D, H, W, C, ii.numel())
+                   out.data_ptr(), D, H, W, C, *_grid_dims(ii.shape))
     return out
 
 

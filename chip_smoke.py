@@ -7,8 +7,11 @@ Phases, one JSON line each:
   1. build   - compile the CUDA kernels of brainfm_tpu_torch/csrc (nvcc,
                sm_90a, one process per source, all at once).
   2. kernel  - each kernel against its plain PyTorch version on the card, at
-               the generator path's shapes, edge cases included; kernel,
-               plain and library times (CUDA events) beside the byte bound.
+               the generator path's shapes, edge cases included
+               (`kernel_cases`); kernel (warm and cold L2), plain and
+               library times (CUDA events) beside the byte bound. K1
+               linear at C=12 is also timed on 4 flagship deformation
+               draws (seeds 0-3).
   3. slice_reference - a small item made on the GPU and replayed on the CPU
                from the same recorded draws (CPU = the plain versions), and a
                small model run on both.
@@ -28,6 +31,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -48,6 +52,9 @@ from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+SPIN_CYCLES = 35_000_000    # about 20 ms at the H100's 1.755 GHz boost clock
+L2_FLUSH_BYTES = 256 << 20  # 5x the H100's 50 MB L2
+FLT_MIN = torch.finfo(torch.float32).tiny
 BANK = (192, 192, 192)
 # K1 linear: fp32 in the plain version's operation order, built without
 # multiply-add contraction, so any difference is a fault; 1e-5 on O(1)
@@ -84,12 +91,33 @@ def gpu_name_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20, warmup=3) -> float:
+def time_ms(fn, reps=20, warmup=3, cold=False) -> float:
+    """Device time of one call. Warm: CUDA events around `reps` calls queued
+    behind a 20 ms spin kernel, so the host has enqueued them all before
+    the first starts and host overhead between calls is not timed; inputs
+    under the L2's 50 MB stay cached from one call to the next. Cold: each
+    call follows a read of a buffer 5x the L2 and has its own pair of
+    events, so it finds its inputs in DRAM, as a caller that has touched
+    other data since would; the mean over the calls."""
     for _ in range(warmup):
         fn()
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        for start, end in events:
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in events) / reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -126,11 +154,14 @@ def path_grid(scfg, dev, seed):
 
 
 def with_edges(grid, D):
-    """Coordinates exactly on 0 and D-1, just inside and just outside, on
+    """Coordinates exactly on 0 and D-1, just inside and just outside (the
+    smallest denormal, FLT_MIN and the largest denormal among them), on
     each axis in turn, at the head of the flattened grid."""
     one = torch.tensor(1.0)
     hi = torch.tensor(float(D - 1))
+    tiny = torch.tensor(FLT_MIN)
     e = torch.stack([torch.tensor(0.0), hi, torch.nextafter(0 * one, one),
+                     tiny, torch.nextafter(tiny, 0 * one),
                      torch.nextafter(hi, hi + 1), torch.nextafter(hi, 0 * one),
                      -torch.nextafter(0 * one, one), torch.tensor(0.5),
                      hi - 0.5, torch.tensor(-3.0), hi + 3.0])
@@ -150,24 +181,77 @@ def with_ties(grid):
     return out
 
 
-def kernel_case(name, kernel, plain, library, nbytes, exact):
-    """Run `kernel` and its plain version, compare, time all three."""
-    got = kernel()
-    want = plain()
+def in_bounds(ii, jj, kk, shape):
+    """K1 linear's in-bounds predicate (ops/interp.py trilinear3d)."""
+    D, H, W = shape
+    return ((ii >= FLT_MIN) & (jj >= FLT_MIN) & (kk >= FLT_MIN)
+            & (ii <= D - 1) & (jj <= H - 1) & (kk <= W - 1))
+
+
+def touched_source_voxels(shape, grid, mode="linear") -> int:
+    """Distinct source voxels of a (D, H, W) volume that a K1 warp at
+    `grid` reads: the 8 corners of each in-bounds output voxel (linear), or
+    the rounded and clipped voxel of each output voxel (nearest). Counted
+    on the grid's device, as a boolean scatter over the source."""
+    D, H, W = shape
+    ii, jj, kk = (c.reshape(-1) for c in grid)
+    hit = torch.zeros(D * H * W, dtype=torch.bool, device=ii.device)
+    if mode == "nearest":
+        x, y, z = (torch.round(c).long().clamp(0, n - 1)
+                   for c, n in zip((ii, jj, kk), shape))
+        hit[(x * H + y) * W + z] = True
+        return int(hit.sum())
+    ok = in_bounds(ii, jj, kk, shape)
+    fx, fy, fz = (torch.floor(c[ok]).long() for c in (ii, jj, kk))
+    for dx in (0, 1):
+        x = (fx + dx).clamp(max=D - 1)
+        for dy in (0, 1):
+            y = (fy + dy).clamp(max=H - 1)
+            for dz in (0, 1):
+                z = (fz + dz).clamp(max=W - 1)
+                hit[(x * H + y) * W + z] = True
+    return int(hit.sum())
+
+
+class Case(NamedTuple):
+    name: str
+    fn: str                 # the C function, a key of kernels.LAUNCHES
+    kernel: Callable        # the wrapper, on the card
+    plain: Callable         # its plain PyTorch version, same inputs
+    library: Callable | None   # one PyTorch call of the same function
+    nbytes: int             # the bound: bytes the function must move
+    exact: bool
+
+
+def linear_bytes(shape, grid, C) -> int:
+    """K1 linear's least traffic in fp32: the touched source voxels, three
+    coordinates and C outputs per output voxel, and the C defaults."""
+    n = grid[0].numel()
+    return 4 * (touched_source_voxels(shape, grid) * C + 3 * n + C + n * C)
+
+
+def run_case(case):
+    """Run a case's kernel and plain version, compare, time all three."""
+    got = case.kernel()
+    want = case.plain()
     torch.cuda.synchronize()
-    if exact:
+    if case.exact:
         err = float((got.long() - want.long()).abs().max())
         ok = err == 0
     else:
         err = float((got - want).abs().max())
         ok = err <= LINEAR_TOL
-    rec = {"phase": "kernel", "case": name, "max_abs_err": err,
-           "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-           "library_ms": None if library is None else time_ms(library),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    rec = {"phase": "kernel", "case": case.name, "max_abs_err": err,
+           "ms": time_ms(case.kernel),
+           "ms_cold": time_ms(case.kernel, cold=True),
+           "plain_ms": time_ms(case.plain),
+           "library_ms": (None if case.library is None
+                          else time_ms(case.library)),
+           "bound_ms": case.nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
     emit(rec)
     if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with its plain "
+        raise AssertionError(f"{case.name}: kernel disagrees with its plain "
                              f"version, max abs err {err}")
     return rec
 
@@ -185,20 +269,19 @@ def grid_sample_yardstick(src, grid, mode, default=None):
     if default is None:
         return lambda: F.grid_sample(vol, g, mode=mode, padding_mode="border",
                                      align_corners=True)
-    ok = ((ii > 0) & (jj > 0) & (kk > 0) & (ii <= D - 1) & (jj <= H - 1)
-          & (kk <= W - 1))[None, None]
+    ok = in_bounds(ii, jj, kk, (D, H, W))[None, None]
     dflt = torch.as_tensor(default, dtype=torch.float32,
                            device=src.device).reshape(1, -1, 1, 1, 1)
     return lambda: torch.where(ok, F.grid_sample(
         vol, g, mode=mode, padding_mode="border", align_corners=True), dflt)
 
 
-def check_kernels(scfg, dev):
+def kernel_cases(scfg, dev) -> list:
+    """Every kernel case at the generator path's shapes, on seed-0 inputs
+    with edge coordinates, ties and out-of-range indices among them."""
     g = torch.Generator(dev).manual_seed(0)
     grid = path_grid(scfg, dev, seed=0)
-    n_out = grid[0].numel()
-    n_src = int(np.prod(BANK))
-    recs = {}
+    cases = []
 
     # K1 linear: the fused target wall (C=12, per-channel defaults) and the
     # real-image warp (C=1)
@@ -206,24 +289,27 @@ def check_kernels(scfg, dev):
     for C in (12, 1):
         shape = BANK + ((C,) if C > 1 else ())
         src = torch.randn(shape, generator=g, device=dev)
-        dflt = torch.randn(C, generator=g, device=dev) if C > 1 else 0.0
-        rec = kernel_case(
-            f"warp_linear_f32 C={C}",
-            lambda: warp_volume(src, egrid, default=dflt),
-            lambda: trilinear3d(src, *egrid, dflt),
+        dflt = (torch.randn(C, generator=g, device=dev) if C > 1
+                else torch.zeros((), device=dev))
+        cases.append(Case(
+            f"warp_linear_f32 C={C}", "warp_linear_f32",
+            lambda s=src, d=dflt: warp_volume(s, egrid, default=d),
+            lambda s=src, d=dflt: trilinear3d(s, *egrid, d),
             grid_sample_yardstick(src, egrid, "bilinear", dflt),
-            4 * (n_src * C + 3 * n_out + C + n_out * C), exact=False)
-        recs.setdefault("warp_linear_f32", rec)
+            linear_bytes(BANK, egrid, C), exact=False))
 
     # K1 nearest: compact labels, with .5 ties
     labels = torch.randint(0, 56, BANK, generator=g, device=dev,
                            dtype=torch.int32)
     tgrid = with_ties(grid)
-    recs["warp_nearest_i32"] = kernel_case(
-        "warp_nearest_i32", lambda: warp_labels(labels, tgrid),
+    n_out = grid[0].numel()
+    cases.append(Case(
+        "warp_nearest_i32", "warp_nearest_i32",
+        lambda: warp_labels(labels, tgrid),
         lambda: nearest3d(labels, *tgrid),
         grid_sample_yardstick(labels, tgrid, "nearest"),
-        4 * (n_src + 3 * n_out + n_out), exact=True)
+        4 * (touched_source_voxels(BANK, tgrid, "nearest") + 3 * n_out
+             + n_out), exact=True))
 
     # K2: label compaction (10000,) i32 over 192^3, vflip (56,) i32 over
     # 160^3, GMM (256, 8) f32 over 192^3; indices -1 and >= K included
@@ -233,23 +319,50 @@ def check_kernels(scfg, dev):
         idx = torch.randint(-1, K + 2, idx_shape, generator=g, device=dev,
                             dtype=torch.int32)
         t2 = table if table.dim() == 2 else table[:, None]
-        valid = ((idx >= 0) & (idx < K))[..., None]
-        idc = idx.long().clamp(0, K - 1)
+        # the library call takes the path's in-range indices (the port
+        # clamps them before the lookup, synth/engine.py)
+        idc = idx.clamp(0, K - 1)
         n = idx.numel()
-        return kernel_case(
-            name, lambda: lut_apply(table, idx),
-            lambda: lut_apply_plain(table, idx),
-            lambda: torch.where(valid, t2[idc], 0),
-            table.element_size() * K * C + 4 * n + table.element_size() * n * C,
-            exact=table.dtype == torch.int32)
+        size = table.element_size()
+        return Case(name, f"lut_gather_{'i32' if C == 1 else 'f32'}",
+                    lambda: lut_apply(table, idx),
+                    lambda: lut_apply_plain(table, idx),
+                    lambda: F.embedding(idc, t2),
+                    size * K * C + 4 * n + size * n * C,
+                    exact=table.dtype == torch.int32)
 
     lut = torch.from_numpy(build_lut(LABELS_EXTRACEREBRAL)).to(dev)
-    recs["lut_gather_i32"] = lut_case("lut_gather_i32 K=10000", lut, BANK)
-    lut_case("lut_gather_i32 K=56", torch.arange(56, dtype=torch.int32,
-                                                 device=dev).flip(0),
-             tuple(scfg.size))
+    cases.append(lut_case("lut_gather_i32 K=10000", lut, BANK))
+    cases.append(lut_case("lut_gather_i32 K=56",
+                          torch.arange(56, dtype=torch.int32,
+                                       device=dev).flip(0),
+                          tuple(scfg.size)))
     gmm = torch.rand((256, 8), generator=g, device=dev) * 200
-    recs["lut_gather_f32"] = lut_case("lut_gather_f32 K=256 C=8", gmm, BANK)
+    cases.append(lut_case("lut_gather_f32 K=256 C=8", gmm, BANK))
+    return cases
+
+
+def check_kernels(scfg, dev):
+    """Each case against its plain version, timed; the first case of each
+    C function stands for it in the `kernels` line. Then the cold timing's
+    floor (an empty pair of events) and K1 C=12 on 4 deformation draws."""
+    recs = {}
+    for case in kernel_cases(scfg, dev):
+        recs.setdefault(case.fn, run_case(case))
+    emit({"phase": "kernel", "case": "cold timing floor (no call)",
+          "ms_cold": time_ms(lambda: None, cold=True)})
+    g = torch.Generator(dev).manual_seed(1)
+    src = torch.randn(BANK + (12,), generator=g, device=dev)
+    dflt = torch.randn(12, generator=g, device=dev)
+    draws = [path_grid(scfg, dev, seed=s) for s in range(4)]
+    ms = [time_ms(lambda d=d: warp_volume(src, d, default=dflt))
+          for d in draws]
+    bound = [linear_bytes(BANK, d, 12) / HBM_BYTES_PER_S * 1e3
+             for d in draws]
+    emit({"phase": "kernel", "case": "warp_linear_f32 C=12 draws",
+          "seeds": [0, 1, 2, 3], "ms": ms, "bound_ms": bound,
+          "ms_min": min(ms), "ms_median": float(np.median(ms)),
+          "ms_max": max(ms)})
     return recs
 
 

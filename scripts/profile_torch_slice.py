@@ -33,7 +33,8 @@ from brainfm_tpu_torch.synth import (SubjectBank, SynthStatic,  # noqa: E402
                                      knobs_from_cfg, synth_item)
 
 # kernel names of brainfm_tpu_torch/csrc
-OWN = ("warp_linear_kernel", "warp_nearest_kernel", "lut_gather")
+OWN = ("warp_linear_kernel", "warp_nearest_kernel", "lut_row_kernel",
+       "lut_word_kernel", "lut_scalar_kernel")
 TOP = 15
 
 

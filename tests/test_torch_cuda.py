@@ -15,6 +15,7 @@ pytestmark = pytest.mark.cuda
 
 # same fp32 operation order, no multiply-add contraction: expect 0
 LINEAR_ATOL = 1e-5
+FLT_MIN = np.finfo(np.float32).tiny
 
 
 @pytest.fixture
@@ -28,36 +29,81 @@ def dev():
 
 def _grid(rng, out_shape, src_shape, dev):
     """Coordinates over and beyond the source, with exact bounds, one ulp
-    in and out, and .5 ties at the head of each axis."""
+    in and out (the smallest denormal, FLT_MIN and the largest denormal
+    among them), and .5 ties at the head of each axis."""
     grid = []
     for a, n in enumerate(src_shape):
         c = rng.uniform(-1.5, n + 0.5, out_shape).astype(np.float32)
         hi = np.float32(n - 1)
         edges = np.array([0.0, hi, np.nextafter(np.float32(0), np.float32(1)),
+                          FLT_MIN, np.nextafter(FLT_MIN, np.float32(0)),
                           np.nextafter(hi, np.float32(n)),
                           np.nextafter(hi, np.float32(0)), -1e-7, 0.5,
                           hi - 0.5, 2.5, -2.0], np.float32)
         flat = c.reshape(-1)
-        flat[a * 10:(a + 1) * 10] = edges
+        flat[a * len(edges):(a + 1) * len(edges)] = edges
         grid.append(torch.from_numpy(flat.reshape(out_shape)).to(dev))
     return grid
 
 
-@pytest.mark.parametrize("channels", [None, 1, 12])
-def test_warp_linear_matches_plain(dev, channels):
-    rng = np.random.default_rng(0)
-    src_shape = (40, 41, 42)
+def _offset_view(t, offset=1):
+    """A contiguous copy of `t` whose data_ptr sits `offset` elements past
+    a 16-B boundary."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _linear_case(rng, channels, out_shape, dev, src_shape=(40, 41, 42)):
     shape = src_shape + (() if channels is None else (channels,))
     vol = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
     C = channels or 1
     dflt = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).to(dev)
     if channels is None:
         dflt = dflt[0]
-    grid = _grid(rng, (30, 31, 29), src_shape, dev)
+    return vol, _grid(rng, out_shape, src_shape, dev), dflt
+
+
+def _assert_linear(vol, grid, dflt):
     got = warp.warp_volume(vol, grid, default=dflt)
     want = interp.trilinear3d(vol, *grid, dflt)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= LINEAR_ATOL
+
+
+@pytest.mark.parametrize("channels", [None, 1, 3, 4, 8, 12])
+def test_warp_linear_matches_plain(dev, channels):
+    """Float4 channel quads (C % 4 == 0) and single channels (C = none, 1,
+    3) on the brick grid."""
+    rng = np.random.default_rng(0)
+    _assert_linear(*_linear_case(rng, channels, (30, 31, 29), dev))
+
+
+@pytest.mark.parametrize("channels", [1, 12])
+@pytest.mark.parametrize("out_shape", [(7, 9, 11), (1001,), (140000, 1, 1),
+                                       (2, 5, 6, 8)])
+def test_warp_linear_ragged_and_flat(dev, channels, out_shape):
+    """n and W not multiples of 4 or of the brick, a 1-D grid and a grid
+    whose brick launch would not fit (the flat view), and leading
+    dimensions folded into D."""
+    rng = np.random.default_rng(3)
+    _assert_linear(*_linear_case(rng, channels, out_shape, dev))
+
+
+@pytest.mark.parametrize("channels", [1, 12])
+@pytest.mark.parametrize("which", ["source", "coords"])
+def test_warp_linear_misaligned_views(dev, channels, which):
+    """A source or coordinate view whose data_ptr is not 16-B aligned (the
+    source then takes single-channel loads) still matches."""
+    rng = np.random.default_rng(4)
+    vol, grid, dflt = _linear_case(rng, channels, (12, 13, 16), dev)
+    if which == "source":
+        vol = _offset_view(vol)
+        assert vol.data_ptr() % 16 != 0
+    else:
+        grid = [_offset_view(c) for c in grid]
+    _assert_linear(vol, grid, dflt)
 
 
 @pytest.mark.parametrize("channels", [None, 3])
@@ -75,20 +121,40 @@ def test_warp_nearest_matches_plain_exactly(dev, channels):
                                          ((56,), torch.int32),
                                          ((256, 8), torch.float32),
                                          ((20000,), torch.int32),
-                                         ((4000, 5), torch.float32)])
-def test_lut_gather_matches_plain_exactly(dev, shape, dtype):
-    """Shared-memory tables and, beyond 48 KB ((20000,) i32, (4000, 5)
-    f32), the __ldg path; indices -1 and >= K give 0."""
+                                         ((4000, 5), torch.float32),
+                                         ((300, 12), torch.float32),
+                                         ((60000,), torch.int32)])
+@pytest.mark.parametrize("idx_shape", [(33, 35, 7), (5,)])
+def test_lut_gather_matches_plain_exactly(dev, shape, dtype, idx_shape):
+    """Tables in shared memory as they are (up to 48 KB), after the opt-in
+    ((20000,) i32, (4000, 5) f32: 80 KB) and beyond 227 KB through __ldg
+    ((60000,) i32: 240 KB); the row path (C % 4 == 0), the word path
+    (C = 1) and the scalar path (C = 5); n % 4 != 0 (8085 and 5 indices);
+    indices -1 and >= K give 0."""
     g = torch.Generator(dev).manual_seed(2)
     table = (torch.randint(-100, 10000, shape, generator=g, device=dev)
              .to(dtype) if dtype == torch.int32
              else torch.randn(shape, generator=g, device=dev))
     K = shape[0]
-    idx = torch.randint(-2, K + 2, (33, 35, 7), generator=g, device=dev,
+    idx = torch.randint(-2, K + 2, idx_shape, generator=g, device=dev,
                         dtype=torch.int32)
     got = lut.lut_apply(table, idx)
     assert got.dtype == dtype
     assert torch.equal(got, lut.lut_apply_plain(table, idx))
+
+
+@pytest.mark.parametrize("shape,dtype", [((10000,), torch.int32),
+                                         ((256, 8), torch.float32)])
+def test_lut_gather_misaligned_views(dev, shape, dtype):
+    """An index or table view whose data_ptr is not 16-B aligned takes the
+    scalar path and still matches exactly."""
+    g = torch.Generator(dev).manual_seed(5)
+    table = torch.randn(shape, generator=g, device=dev).mul(100).to(dtype)
+    K = shape[0]
+    idx = torch.randint(-2, K + 2, (1001,), generator=g, device=dev,
+                        dtype=torch.int32)
+    for t, i in ((table, _offset_view(idx)), (_offset_view(table), idx)):
+        assert torch.equal(lut.lut_apply(t, i), lut.lut_apply_plain(t, i))
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -98,6 +164,9 @@ def test_wrappers_reject_bad_inputs(dev):
         warp.warp_volume(vol.double(), grid)
     with pytest.raises(ValueError):
         warp.warp_volume(vol, [grid[0].cpu(), grid[1], grid[2]])
+    with pytest.raises(ValueError, match="channels"):
+        warp.warp_volume(torch.zeros(2, 2, 2, warp.MAX_CHANNELS + 1,
+                                     device=dev), grid)
     with pytest.raises(TypeError):
         lut.lut_apply(torch.zeros(5, device=dev, dtype=torch.int64),
                       torch.zeros(3, device=dev, dtype=torch.int32))

@@ -19,22 +19,24 @@ from brainfm_tpu_torch.ops import blur, interp, lut, separable, warp
 # linear warps: both sides blend in fp32 in the same operation order; XLA
 # may contract a multiply-add, so allow a few ulps of O(10) values
 LINEAR_ATOL = 1e-5
+FLT_MIN = np.finfo(np.float32).tiny
 
 
 def _coords(rng, out_shape, src_shape):
     """Coordinates spread over and beyond the source, with exact bounds,
-    just-inside/outside values and .5 ties at the head of each axis."""
+    just-inside/outside values (the smallest denormal, FLT_MIN and the
+    largest denormal among them) and .5 ties at the head of each axis."""
     grid = []
     for a, n in enumerate(src_shape):
         c = rng.uniform(-1.5, n + 0.5, out_shape).astype(np.float32)
         hi = np.float32(n - 1)
-        # just inside 0 is 1e-6, not the smallest float: XLA on the CPU
-        # flushes denormals to zero, the port does not
-        edges = np.array([0.0, hi, 1e-6, np.nextafter(hi, np.float32(n)),
+        edges = np.array([0.0, hi, np.nextafter(np.float32(0), np.float32(1)),
+                          FLT_MIN, np.nextafter(FLT_MIN, np.float32(0)),
+                          np.nextafter(hi, np.float32(n)),
                           np.nextafter(hi, np.float32(0)), -1e-7, 0.5,
                           hi - 0.5, 2.5, -2.0], np.float32)
         flat = c.reshape(-1)
-        flat[a * 10:(a + 1) * 10] = edges
+        flat[a * len(edges):(a + 1) * len(edges)] = edges
         grid.append(flat.reshape(out_shape))
     return grid
 
@@ -58,7 +60,7 @@ def test_warp_volume_matches_jax(channels):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=LINEAR_ATOL)
     # the out-of-bounds voxels take the default exactly
-    oob = ~((grid[0] > 0) & (grid[1] > 0) & (grid[2] > 0)
+    oob = ~((grid[0] >= FLT_MIN) & (grid[1] >= FLT_MIN) & (grid[2] >= FLT_MIN)
             & (grid[0] <= 11) & (grid[1] <= 12) & (grid[2] <= 13))
     assert oob.any()
     np.testing.assert_array_equal(

@@ -1,0 +1,86 @@
+"""chip_smoke.py's byte bound for K1 on the CPU: the distinct source voxels
+that a warp reads, counted as a boolean scatter, against a brute-force set
+count in numpy on a small grid with edge coordinates."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+FLT_MIN = np.finfo(np.float32).tiny
+
+
+def _grid(seed, out_shape, src_shape):
+    rng = np.random.default_rng(seed)
+    grid = []
+    for a, n in enumerate(src_shape):
+        c = rng.uniform(-1.5, n + 0.5, out_shape).astype(np.float32)
+        hi = np.float32(n - 1)
+        edges = np.array([0.0, hi, FLT_MIN, np.nextafter(FLT_MIN, np.float32(0)),
+                          np.nextafter(hi, np.float32(n)), 0.5, hi - 0.5, 2.5],
+                         np.float32)
+        flat = c.reshape(-1)
+        flat[a * len(edges):(a + 1) * len(edges)] = edges
+        grid.append(flat.reshape(out_shape))
+    return grid
+
+
+def _brute_force(shape, grid, mode):
+    D, H, W = shape
+    seen = set()
+    for x, y, z in zip(*(g.reshape(-1) for g in grid)):
+        if mode == "nearest":
+            seen.add(tuple(int(np.clip(np.round(c), 0, n - 1))
+                           for c, n in zip((x, y, z), shape)))
+            continue
+        if not (x >= FLT_MIN and y >= FLT_MIN and z >= FLT_MIN
+                and x <= D - 1 and y <= H - 1 and z <= W - 1):
+            continue
+        f = [int(np.floor(c)) for c in (x, y, z)]
+        for a in {f[0], min(f[0] + 1, D - 1)}:
+            for b in {f[1], min(f[1] + 1, H - 1)}:
+                for c in {f[2], min(f[2] + 1, W - 1)}:
+                    seen.add((a, b, c))
+    return len(seen)
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("seed,out_shape", [(0, (6, 7, 8)), (1, (3, 4, 30))])
+def test_touched_source_voxels_matches_set_count(mode, seed, out_shape):
+    src_shape = (9, 10, 11)
+    grid = _grid(seed, out_shape, src_shape)
+    want = _brute_force(src_shape, grid, mode)
+    got = chip_smoke.touched_source_voxels(
+        src_shape, [torch.from_numpy(g) for g in grid], mode)
+    assert got == want
+    assert 0 < got < np.prod(src_shape)
+
+
+def test_kernel_cases_cover_every_kernel(monkeypatch):
+    """chip_smoke.kernel_cases (also timed by scripts/compare_kernels.py) at
+    a small size on the CPU, where each wrapper takes its plain version:
+    one case per path shape, every C function covered, each library call
+    of the output's size, and the byte bound at least the output's bytes."""
+    monkeypatch.setattr(chip_smoke, "BANK", (24, 24, 24))
+    cfg = chip_smoke.process_args(chip_smoke.flagship_cfg())
+    scfg = chip_smoke.SynthStatic.from_cfg(cfg)
+    scfg = chip_smoke.SynthStatic(**{**scfg.__dict__, "size": (12, 12, 12)})
+    cases = chip_smoke.kernel_cases(scfg, torch.device("cpu"))
+    assert [c.name for c in cases] == [
+        "warp_linear_f32 C=12", "warp_linear_f32 C=1", "warp_nearest_i32",
+        "lut_gather_i32 K=10000", "lut_gather_i32 K=56",
+        "lut_gather_f32 K=256 C=8"]
+    assert {c.fn for c in cases} == set(chip_smoke.SOURCES)
+    for c in cases:
+        got, want = c.kernel(), c.plain()
+        assert torch.equal(got, want), c.name
+        assert c.library().numel() == got.numel(), c.name
+        assert c.nbytes >= got.numel() * got.element_size(), c.name
