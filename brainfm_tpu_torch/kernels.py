@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -44,6 +45,11 @@ SOURCES = sorted({src for src, _ in FUNCTIONS.values()})
 
 LAUNCHES = {fn: 0 for fn in FUNCTIONS}
 _LIBS: dict = {}
+# serving prepares the next volume on a host thread while the calling
+# thread serves the current one: the first use of a library from either
+# builds and loads it once, and no launch count is lost
+_LIBS_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches():
@@ -105,18 +111,19 @@ def build(names=None) -> dict:
 
 
 def _library(name: str):
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        for fn, (src, argtypes) in FUNCTIONS.items():
-            if src == name:
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            for fn, (src, argtypes) in FUNCTIONS.items():
+                if src == name:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
 
 
 def launch(fn: str, *args):
@@ -128,4 +135,5 @@ def launch(fn: str, *args):
     rc = getattr(_library(FUNCTIONS[fn][0]), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
-    LAUNCHES[fn] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[fn] += 1

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.lut import lut_apply
 from ..synth.constants import LABELS_EXTRACEREBRAL, LABELS_LEFT
 from .heads import TaskHead
 from .unet3d import UNet3D
@@ -160,4 +161,58 @@ def apply_processors(outputs: dict, cfg) -> dict:
         out["distance"] = out["distance"].clamp(-m, m)
     if "pathology" in tasks and "pathology" in out:
         out["pathology"] = torch.sigmoid(out["pathology"])
+    return out
+
+
+def _at_least_fp32(v):
+    if torch.is_tensor(v) and v.is_floating_point():
+        return v.to(torch.promote_types(v.dtype, torch.float32))
+    return v
+
+
+def _fake_cortical(p, w, a=2.0):
+    return (70 * (1 - (torch.tanh(a * (w + 0.3)) + 1) / 2)
+            + 40 * (1 - (torch.tanh(a * p) + 1) / 2))
+
+
+def postprocess(outputs: dict, cfg, samples: dict | None = None,
+                target: dict | None = None) -> dict:
+    """Final output shaping (parity: get_postprocessor,
+    Trainer/models/__init__.py:272-354): distance split + fake-cortical tanh
+    render, registration split, bias-field exp, label argmax -> FreeSurfer
+    ids, CT rescale, SR residual+input. The label map is
+    `label_list_segmentation[argmax]`, an int32 table lookup that runs
+    through K2 (ops/lut.py::lut_apply) on CUDA. Floating outputs below fp32
+    (a bf16 forward) are lifted to fp32 first; call it outside any
+    autocast."""
+    del target
+    out = {k: _at_least_fp32(v) for k, v in outputs.items()}
+    if samples is not None:
+        samples = {k: _at_least_fp32(v) for k, v in samples.items()}
+    tasks = cfg.tasks
+    if "super_resolution" in tasks and samples is not None \
+            and "high_res_residual" in out:
+        out["high_res"] = out["high_res_residual"] + samples["input"]
+    if "bias_field" in tasks and "bias_field_log" in out:
+        out["bias_field"] = torch.exp(out.pop("bias_field_log"))
+    if "distance" in tasks and "distance" in out:
+        d = out.pop("distance")
+        out["lp"], out["lw"] = d[..., 0:1], d[..., 1:2]
+        fake = _fake_cortical(out["lp"], out["lw"])
+        if not cfg.generator.left_hemis_only:
+            out["rp"], out["rw"] = d[..., 2:3], d[..., 3:4]
+            fake = fake + _fake_cortical(out["rp"], out["rw"])
+        out["fake_cortical"] = fake
+    if "registration" in tasks and "registration" in out:
+        r = out.pop("registration")
+        out["regx"], out["regy"], out["regz"] = (r[..., 0:1], r[..., 1:2],
+                                                 r[..., 2:3])
+    if "segmentation" in tasks and "segmentation" in out:
+        seg = out["segmentation"]
+        lab = torch.tensor(list(cfg.label_list_segmentation),
+                           dtype=torch.int32, device=seg.device)
+        idx = torch.argmax(seg, dim=-1).to(torch.int32)
+        out["label"] = lut_apply(lab, idx)[..., None]
+    if "CT" in tasks and "CT" in out:
+        out["CT"] = out["CT"] * 1000.0
     return out

@@ -1,4 +1,4 @@
-"""Weights between the JAX package and the port.
+"""Weights between the JAX package, checkpoint files and the port.
 
 `from_jax_params` turns a flax parameter tree of brainfm_tpu's Joiner
 (UNet3D backbone + TaskHead; numpy leaves) into a state dict of the port's
@@ -6,6 +6,9 @@ Joiner. Its keys are the reference's state-dict names, the ones
 brainfm_tpu/models/torch_import.py::torch_to_flax_params parses, so the
 two functions are inverses. Conv kernels go (kd,kh,kw,cin,cout) ->
 (cout,cin,kd,kh,kw); dtypes are kept.
+
+`load_pth` reads a reference `.pth` / `.pt` state dict straight into the
+port's Joiner: the port's parameter names are the reference's.
 """
 
 from __future__ import annotations
@@ -59,3 +62,20 @@ def from_jax_params(params) -> dict:
             a = np.transpose(a, (4, 3, 0, 1, 2))
         sd[_torch_key(path)] = torch.from_numpy(np.array(a))  # a writable copy
     return sd
+
+
+def load_pth(model, path: str):
+    """Load a `.pth` / `.pt` checkpoint into the Joiner `model` (parity:
+    torch_import.py::load_torch_state_dict and its key handling): a
+    `"model"` entry is unwrapped, a `module.` prefix (DataParallel) is
+    stripped, and a bare backbone (UNet3D keys without `backbone.`) loads
+    into `model.backbone`. Loading is strict. The file is read with
+    `weights_only=True`: tensors and plain containers only, no pickled
+    code. Returns the model."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    state = {k.removeprefix("module."): v for k, v in state.items()}
+    bare = (not any(k.startswith("backbone.") for k in state)
+            and any(k.startswith(("encoders.", "decoders")) for k in state))
+    (model.backbone if bare else model).load_state_dict(state, strict=True)
+    return model

@@ -17,10 +17,14 @@ def linear_resample_matrix(coords, n_in: int, upper=None,
     """(n_out, n_in) row-stochastic linear interpolation matrix sampling at
     `coords`. `upper`: effective last valid index (default n_in-1), where
     rows clamp. `mask_oob=True` zeroes rows whose coordinate falls outside
-    the strict (0, upper] bound."""
+    [tiny, upper], `tiny` the smallest normal float of the coordinates'
+    type: the reference tests `coords > 0` under XLA, which flushes
+    denormals to zero, so a denormal coordinate is out of bounds there
+    (the rule of ops/interp.py::trilinear3d)."""
     up = torch.as_tensor(n_in - 1 if upper is None else upper,
                          dtype=torch.float32, device=coords.device)
-    ok = (coords > 0) & (coords <= up) if mask_oob else None
+    tiny = torch.finfo(coords.dtype).tiny
+    ok = (coords >= tiny) & (coords <= up) if mask_oob else None
     c = torch.minimum(coords.clamp(min=0.0), up)
     f = torch.floor(c)
     w = (c - f)[:, None]

@@ -7,10 +7,10 @@ Phases, one JSON line each:
   1. build   - compile the CUDA kernels of brainfm_tpu_torch/csrc (nvcc,
                sm_90a, one process per source, all at once).
   2. kernel  - each kernel against its plain PyTorch version on the card, at
-               the generator path's shapes, edge cases included
-               (`kernel_cases`); kernel (warm and cold L2), plain and
-               library times (CUDA events) beside the byte bound. K1
-               linear at C=12 is also timed on 4 flagship deformation
+               the generator path's and the serving path's shapes, edge
+               cases included (`kernel_cases`); kernel (warm and cold L2),
+               plain and library times (CUDA events) beside the byte bound.
+               K1 linear at C=12 is also timed on 4 flagship deformation
                draws (seeds 0-3).
   3. slice_reference - a small item made on the GPU and replayed on the CPU
                from the same recorded draws (CPU = the plain versions), and a
@@ -19,17 +19,28 @@ Phases, one JSON line each:
                bank, S=4) through synth_item, the L6 f_maps-64 joint forward
                under bf16 autocast and apply_processors; launch counts of
                every kernel over that run.
-Then the `kernels` summary line, the card's name and power limit, and the
-result line. Exits non-zero, printing no result, when a phase fails or no
-GPU is present.
+  5. serve_reference - a small head file served by the small model on the
+               GPU and on the CPU (prepare_image, evaluate_image with
+               postprocess, get_deformed_atlas), compared.
+  6. serve   - three procedural heads served whole at 220^3 by the L6
+               f_maps-64 model (the slice's weights) in bf16 through
+               Inferencer.evaluate_path, the deformed atlas on a 256^3
+               atlas, one tiled pass; stage times per volume; launch counts
+               over those steps.
+Then the `kernels` summary line (launches on both paths), the card's name
+and power limit, and the result line. Exits non-zero, printing no result,
+when a phase fails or no GPU is present.
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple
 
@@ -39,6 +50,8 @@ import torch.nn.functional as F
 
 from brainfm_tpu_torch import kernels
 from brainfm_tpu_torch.config import load_config, merge_missing
+from brainfm_tpu_torch.infer import (Inferencer, get_deformed_atlas,
+                                     prepare_image, tile_plan)
 from brainfm_tpu_torch.models import (apply_processors, build_model,
                                       process_args)
 from brainfm_tpu_torch.ops.interp import nearest3d, trilinear3d
@@ -49,6 +62,7 @@ from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
                                      knobs_from_cfg, random_affine,
                                      random_nonlinear_field, sample_setup,
                                      synth_item)
+from brainfm_tpu_torch.utils.nifti import load_nifti, save_nifti
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -69,6 +83,14 @@ REPLAY_TOL = 1e-3
 # that rounding
 MODEL_TOL = 5e-3
 SEG_AGREE = 0.9999   # fp32 coordinate ties may flip a label at a boundary
+# serving: whole volumes cropped to 220^3 at 1 mm; the inputs are written
+# with 1.2 x 1.0 x 1.5 mm voxels (every axis 240 mm) and a non-RAS affine
+SERVE_WIN = (220, 220, 220)
+SERVE_SHAPE = (200, 240, 160)
+SERVE_VOXEL_MM = (1.2, 1.0, 1.5)
+# voxel axis 0 along +A, axis 1 along -S, axis 2 along -R
+SERVE_AXES = np.array([[0, 0, -1], [1, 0, 0], [0, -1, 0]], np.float64)
+ATLAS_SHAPE = (256, 256, 256)   # 1 mm, as the reference's gca.mgz
 
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
@@ -313,11 +335,12 @@ def kernel_cases(scfg, dev) -> list:
 
     # K2: label compaction (10000,) i32 over 192^3, vflip (56,) i32 over
     # 160^3, GMM (256, 8) f32 over 192^3; indices -1 and >= K included
-    def lut_case(name, table, idx_shape):
+    def lut_case(name, table, idx_shape, idx=None):
         K = table.shape[0]
         C = 1 if table.dim() == 1 else table.shape[1]
-        idx = torch.randint(-1, K + 2, idx_shape, generator=g, device=dev,
-                            dtype=torch.int32)
+        if idx is None:
+            idx = torch.randint(-1, K + 2, idx_shape, generator=g,
+                                device=dev, dtype=torch.int32)
         t2 = table if table.dim() == 2 else table[:, None]
         # the library call takes the path's in-range indices (the port
         # clamps them before the lookup, synth/engine.py)
@@ -339,16 +362,56 @@ def kernel_cases(scfg, dev) -> list:
                           tuple(scfg.size)))
     gmm = torch.rand((256, 8), generator=g, device=dev) * 200
     cases.append(lut_case("lut_gather_f32 K=256 C=8", gmm, BANK))
+
+    # serving: the deformed atlas (K1 C=1, a 1 mm atlas on an affine grid
+    # of the served volume, edges included) and the label map (K2, the
+    # (56,) label table over the int64 argmax of 56 channels, cast)
+    atlas = torch.rand(ATLAS_SHAPE, generator=g, device=dev)
+    agrid = with_edges(atlas_grid(dev), ATLAS_SHAPE[0])
+    zero = torch.zeros((), device=dev)
+    cases.append(Case(
+        "warp_linear_f32 C=1 atlas", "warp_linear_f32",
+        lambda: warp_volume(atlas, agrid, default=0.0),
+        lambda: trilinear3d(atlas, *agrid, 0.0),
+        grid_sample_yardstick(atlas, agrid, "bilinear", zero),
+        linear_bytes(ATLAS_SHAPE, agrid, 1), exact=False))
+    logits = torch.randn((1, *SERVE_WIN, 56), generator=g, device=dev)
+    amax = logits.argmax(-1).to(torch.int32)
+    del logits
+    table = torch.tensor(LABELS_EXTRACEREBRAL, dtype=torch.int32, device=dev)
+    cases.append(lut_case("lut_gather_i32 K=56 labels", table, None, amax))
     return cases
+
+
+def atlas_grid(dev):
+    """Source coordinates in a 1 mm atlas of ATLAS_SHAPE for each voxel of
+    a SERVE_WIN volume: a 10 degree rotation and a 5 % scale about the two
+    centres, so the corners fall outside the atlas."""
+    th = np.deg2rad(10.0)
+    R = 1.05 * np.array([[np.cos(th), -np.sin(th), 0.0],
+                         [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+    ax = [torch.arange(n, device=dev, dtype=torch.float32) - (n - 1) / 2
+          for n in SERVE_WIN]
+    x, y, z = torch.meshgrid(*ax, indexing="ij")
+    return [(float(R[a, 0]) * x + float(R[a, 1]) * y + float(R[a, 2]) * z
+             + (ATLAS_SHAPE[a] - 1) / 2).contiguous() for a in range(3)]
+
+
+SERVING_CASES = ("warp_linear_f32 C=1 atlas", "lut_gather_i32 K=56 labels")
 
 
 def check_kernels(scfg, dev):
     """Each case against its plain version, timed; the first case of each
-    C function stands for it in the `kernels` line. Then the cold timing's
-    floor (an empty pair of events) and K1 C=12 on 4 deformation draws."""
-    recs = {}
+    C function stands for it in the `kernels` line, the serving cases
+    beside it. Then the cold timing's floor (an empty pair of events) and
+    K1 C=12 on 4 deformation draws. Returns (records by C function, serving
+    records by C function)."""
+    recs, serving = {}, {}
     for case in kernel_cases(scfg, dev):
-        recs.setdefault(case.fn, run_case(case))
+        rec = run_case(case)
+        recs.setdefault(case.fn, rec)
+        if case.name in SERVING_CASES:
+            serving[case.fn] = rec
     emit({"phase": "kernel", "case": "cold timing floor (no call)",
           "ms_cold": time_ms(lambda: None, cold=True)})
     g = torch.Generator(dev).manual_seed(1)
@@ -363,7 +426,7 @@ def check_kernels(scfg, dev):
           "seeds": [0, 1, 2, 3], "ms": ms, "bound_ms": bound,
           "ms_min": min(ms), "ms_median": float(np.median(ms)),
           "ms_max": max(ms)})
-    return recs
+    return recs, serving
 
 
 def _max_err(a, b):
@@ -418,6 +481,71 @@ def check_slice_reference(cfg, dev):
           "model_tol": MODEL_TOL, "seg_agree_min": SEG_AGREE})
     if bad:
         raise AssertionError(f"GPU/CPU disagreement beyond tolerance: {bad}")
+
+
+def write_mgz(path, vol, spacing=(1.0, 1.0, 1.0), mdc=np.eye(3),
+              c_ras=(0.0, 0.0, 0.0)):
+    """A FreeSurfer .mgz (MGH version 1, one frame, float32 or int32, with
+    its RAS geometry: direction cosines `mdc` as columns, voxel `spacing`,
+    the centre voxel's RAS `c_ras`)."""
+    vol = np.asarray(vol)
+    code = {np.dtype(np.float32): 3, np.dtype(np.int32): 1}[vol.dtype]
+    hdr = bytearray(284)
+    struct.pack_into(">7i", hdr, 0, 1, *vol.shape[:3], 1, code, 0)
+    struct.pack_into(">h", hdr, 28, 1)                      # goodRAS
+    struct.pack_into(">3f", hdr, 30, *spacing)
+    struct.pack_into(">9f", hdr, 42,
+                     *np.asarray(mdc, np.float64).reshape(-1, order="F"))
+    struct.pack_into(">3f", hdr, 78, *c_ras)
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(bytes(hdr))
+        f.write(vol.astype(vol.dtype.newbyteorder(">")).tobytes(order="F"))
+
+
+def serve_affine(shape, voxel_mm, axes=SERVE_AXES):
+    """Voxel -> RAS affine: voxel axis j runs along axes[:, j] with spacing
+    voxel_mm[j], the volume centred on the origin."""
+    aff = np.eye(4)
+    aff[:3, :3] = axes * np.asarray(voxel_mm, np.float64)
+    aff[:3, 3] = -aff[:3, :3] @ ((np.asarray(shape) - 1) / 2.0)
+    return aff
+
+
+def _smooth_noise(shape, cells, gen, dev):
+    """Trilinearly upsampled gaussian noise on a coarse grid: a texture
+    with features about shape/cells voxels wide."""
+    coarse = torch.randn((1, 1, *cells), generator=gen, device=dev)
+    return F.interpolate(coarse, size=tuple(shape), mode="trilinear",
+                         align_corners=True)[0, 0]
+
+
+def procedural_head(shape, voxel_mm, seed, dev):
+    """A head-like float32 volume (numpy): an ellipsoid of brain texture in
+    a brighter shell on a zero background, with noise; radii in mm, so the
+    head fills about 3/4 of a 240 mm field."""
+    g = torch.Generator(dev).manual_seed(seed)
+    ax = [(torch.arange(n, device=dev, dtype=torch.float32) - (n - 1) / 2)
+          * v for n, v in zip(shape, voxel_mm)]
+    x, y, z = torch.meshgrid(*ax, indexing="ij")
+    ext = [n * v for n, v in zip(shape, voxel_mm)]
+    r = torch.sqrt((x / (0.36 * ext[0])) ** 2 + (y / (0.42 * ext[1])) ** 2
+                   + (z / (0.33 * ext[2])) ** 2)
+    tex = _smooth_noise(shape, (9, 9, 9), g, dev)
+    vol = torch.where(r < 0.9, 70 + 25 * tex, 0.0)
+    vol = vol + torch.where((r >= 0.9) & (r < 1.0), 110.0, 0.0)
+    vol = vol + 3 * torch.randn(shape, generator=g, device=dev) * (r < 1.0)
+    return vol.clamp(min=0).cpu().numpy()
+
+
+def procedural_atlas(shape, seed, dev):
+    """An atlas-like float32 volume (numpy) at 1 mm: smooth intensities in
+    [0, 1] inside a centred ellipsoid, 0 outside."""
+    g = torch.Generator(dev).manual_seed(seed)
+    ax = [torch.linspace(-1, 1, n, device=dev) for n in shape]
+    x, y, z = torch.meshgrid(*ax, indexing="ij")
+    inside = (x / 0.7) ** 2 + (y / 0.85) ** 2 + (z / 0.65) ** 2 < 1
+    tex = torch.sigmoid(2 * _smooth_noise(shape, (12, 12, 12), g, dev))
+    return torch.where(inside, tex, 0.0).cpu().numpy()
 
 
 EXPECTED_HEADS = {"T1": 1, "T2": 1, "FLAIR": 1, "CT": 1, "bias_field_log": 1,
@@ -486,6 +614,191 @@ def run_slice(cfg, dev, power):
           "forward_ms": fwd_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "launches": launches, "gpu": power})
+    return launches, model.state_dict()
+
+
+def check_serve_reference(dev, tmp):
+    """The small model served on the GPU (fp32, TF32 off) and on the CPU
+    from one state dict: a small head NIfTI with anisotropic voxels and a
+    permuted, flipped affine through prepare_image (with an acquisition
+    spacing, so K1 runs there) -> evaluate_image -> postprocess, then
+    get_deformed_atlas on a small .mgz atlas. Each device serves its own
+    prepared image; the atlas is rendered on both from the CPU's outputs."""
+    shape = (36, 44, 28)
+    img = os.path.join(tmp, "ref_head.nii")
+    save_nifti(img, procedural_head(shape, SERVE_VOXEL_MM, 5, dev),
+               serve_affine(shape, SERVE_VOXEL_MM))
+    atlas = os.path.join(tmp, "ref_atlas.mgz")
+    write_mgz(atlas, procedural_atlas((64, 64, 64), 6, dev), (3.0, 3.0, 3.0))
+    gpu = Inferencer(small_model_cfg(), device=dev)
+    cpu = Inferencer(small_model_cfg(), device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    kw = dict(win_size=[40, 40, 40], spacing=(1.0, 1.0, 2.0))
+    kernels.reset_launches()
+    ig, aff_g, _, _ = prepare_image(img, device=dev, **kw)
+    og = gpu.evaluate_image(ig, keep_feat=False)
+    launches = dict(kernels.LAUNCHES)
+    ic, aff_c, _, _ = prepare_image(img, device="cpu", **kw)
+    oc = cpu.evaluate_image(ic, keep_feat=False)
+    args = [oc[k][0, ..., 0] for k in ("label", "regx", "regy", "regz")]
+    ag = get_deformed_atlas(*[a.to(dev) for a in args], atlas_path=atlas)
+    ac = get_deformed_atlas(*args, atlas_path=atlas)
+    errs = {"image": _max_err(ig, ic), "affine": float(np.abs(aff_g - aff_c)
+                                                       .max()),
+            "atlas": _max_err(ag, ac)}
+    rel = {k: _rel_err(og[k], oc[k]) for k in og if k != "label"}
+    agree = float((og["label"].cpu() == oc["label"]).float().mean())
+    bad = {k: v for k, v in errs.items() if not v <= REPLAY_TOL}
+    bad |= {k: v for k, v in rel.items() if not v <= MODEL_TOL}
+    if agree < SEG_AGREE:
+        bad["label_agree"] = agree
+    if launches["warp_linear_f32"] < 1 or launches["lut_gather_i32"] < 1:
+        bad["launches"] = launches
+    emit({"phase": "serve_reference", "shape": list(ig.shape),
+          "max_abs_err": errs, "model_rel_err": rel, "label_agree": agree,
+          "atlas_nonzero": float((ac > 0).float().mean()),
+          "launches": launches, "replay_tol": REPLAY_TOL,
+          "model_tol": MODEL_TOL, "seg_agree_min": SEG_AGREE})
+    if bad:
+        raise AssertionError(f"serving GPU/CPU disagreement: {bad}")
+
+
+SERVE_HEADS = {"T1": 1, "T2": 1, "FLAIR": 1, "CT": 1, "bias_field": 1,
+               "segmentation": 56, "label": 1, "lp": 1, "lw": 1, "rp": 1,
+               "rw": 1, "fake_cortical": 1, "regx": 1, "regy": 1, "regz": 1}
+
+
+class CheckedInferencer(Inferencer):
+    """An Inferencer that checks each served volume's outputs on the device
+    just before they are fetched: shapes, finite values, labels inside the
+    label table, and K2 launches since the previous volume."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.table = torch.tensor(self.cfg.label_list_segmentation,
+                                  dtype=torch.int32, device=self.device)
+        self.volumes = []
+
+    def _fetch_outputs(self, outs, exclude_keys):
+        k2 = kernels.LAUNCHES["lut_gather_i32"]
+        self.volumes.append({
+            "shapes": {k: list(v.shape) for k, v in outs.items()},
+            "nonfinite": [k for k, v in outs.items() if v.is_floating_point()
+                          and not bool(torch.isfinite(v).all())],
+            "labels_in_table": bool(torch.isin(outs["label"],
+                                               self.table).all()),
+            "k2_launches": k2 - sum(v["k2_launches"] for v in self.volumes)})
+        return super()._fetch_outputs(outs, exclude_keys)
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def run_serve(cfg, state, dev, power, tmp):
+    """Three procedural heads served whole at 220^3 by the flagship model in
+    bf16 through evaluate_path (prefetch on; the 56-channel softmax is not
+    written, and the outputs are written as .nii, not gzipped, so host time
+    stays small), the deformed atlas of one result on a 256^3 1 mm atlas,
+    and one volume tiled (window 160, stride 80: 8 tiles). Kernel launches
+    are counted over those three steps. Then a serial walk over the same
+    files times each stage per volume, every stage ended by a
+    synchronize."""
+    paths = []
+    for i in range(3):
+        p = os.path.join(tmp, f"head{i}.nii")
+        save_nifti(p, procedural_head(SERVE_SHAPE, SERVE_VOXEL_MM, 10 + i,
+                                      dev),
+                   serve_affine(SERVE_SHAPE, SERVE_VOXEL_MM))
+        paths.append(p)
+    atlas = os.path.join(tmp, "atlas.mgz")
+    write_mgz(atlas, procedural_atlas(ATLAS_SHAPE, 7, dev))
+    inf = CheckedInferencer(cfg, compute_dtype=torch.bfloat16, exact=False,
+                            device=dev)
+    inf.model.load_state_dict(state)
+    out_dir = os.path.join(tmp, "served")
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    dirs, path_ms = _synced_ms(lambda: inf.evaluate_path(
+        paths, out_dir, win_size=SERVE_WIN, prefetch=True,
+        exclude_keys=("segmentation",), ext=".nii"))
+    path_launches = dict(kernels.LAUNCHES)
+    peak_path = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    res = {k: torch.from_numpy(load_nifti(os.path.join(
+        dirs[0], f"out_{k}.nii"))[0].copy()).to(dev)
+        for k in ("label", "regx", "regy", "regz")}
+    before = dict(kernels.LAUNCHES)
+    deformed, atlas_first_ms = _synced_ms(lambda: get_deformed_atlas(
+        res["label"], res["regx"], res["regy"], res["regz"], atlas))
+    atlas_k1 = kernels.LAUNCHES["warp_linear_f32"] - before["warp_linear_f32"]
+    _, atlas_ms = _synced_ms(lambda: get_deformed_atlas(
+        res["label"], res["regx"], res["regy"], res["regz"], atlas))
+
+    im = prepare_image(paths[0], list(SERVE_WIN), device=dev)[0]
+    n_tiles = len(tile_plan(SERVE_WIN, (80, 80, 80), (160, 160, 160))[0])
+    tiled, tiled_ms = _synced_ms(lambda: inf.evaluate_tiled(
+        im, (80, 80, 80), (160, 160, 160)))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    stages = []
+    for p in paths:
+        (im, _, _, _), prep = _synced_ms(
+            lambda: prepare_image(p, list(SERVE_WIN), device=dev))
+        raw, fwd = _synced_ms(lambda: inf.evaluate_image(
+            im, run_postprocess=False, keep_feat=False))
+        with torch.inference_mode():
+            out, post = _synced_ms(lambda: inf._post(raw, im[None, ..., None]))
+        del raw
+        t0 = time.perf_counter()
+        inf._fetch_outputs(out, ("segmentation",))
+        stages.append({"prepare_ms": prep, "forward_ms": fwd,
+                       "post_ms": post,
+                       "fetch_ms": (time.perf_counter() - t0) * 1e3})
+        del out
+
+    bad = []
+    files = sorted(os.listdir(dirs[0])) if dirs else []
+    want_files = sorted(f"out_{k}.nii" for k in SERVE_HEADS
+                        if k != "segmentation")
+    if len(dirs) != 3 or files != want_files:
+        bad.append(f"written files {files}")
+    for i, v in enumerate(inf.volumes[:3]):
+        for k, c in SERVE_HEADS.items():
+            if v["shapes"].get(k) != [1, *SERVE_WIN, c]:
+                bad.append(f"volume {i} {k}: {v['shapes'].get(k)}")
+        if v["nonfinite"] or not v["labels_in_table"] \
+                or v["k2_launches"] < 1:
+            bad.append(f"volume {i}: {v}")
+    if tuple(deformed.shape) != SERVE_WIN or not bool(
+            torch.isfinite(deformed).all()) or atlas_k1 < 1:
+        bad.append(f"atlas {tuple(deformed.shape)}, K1 launches {atlas_k1}")
+    for k, v in tiled.items():
+        if tuple(v.shape) != (*SERVE_WIN, SERVE_HEADS[k]) or (
+                v.is_floating_point() and not bool(torch.isfinite(v).all())):
+            bad.append(f"tiled {k}: {tuple(v.shape)}")
+    if set(tiled) != set(SERVE_HEADS):
+        bad.append(f"tiled keys {sorted(tiled)}")
+    emit({"phase": "serve", "volumes": 3, "win": list(SERVE_WIN),
+          "input_shape": list(SERVE_SHAPE), "voxel_mm": list(SERVE_VOXEL_MM),
+          "f_maps": int(cfg.f_maps), "num_levels": int(cfg.num_levels),
+          "dtype": "bf16", "written": "every output but segmentation, .nii",
+          "path_ms": path_ms, "volume_ms": path_ms / 3, "stages": stages,
+          "atlas_ms": atlas_ms, "atlas_first_ms": atlas_first_ms,
+          "tiled_ms": tiled_ms, "tiles": n_tiles, "peak_mem_gib": peak,
+          "peak_mem_gib_path": peak_path,
+          "k2_per_volume": [v["k2_launches"] for v in inf.volumes[:3]],
+          "atlas_k1_launches": atlas_k1, "launches_path": path_launches,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"serve phase failed: {bad}")
     return launches
 
 
@@ -505,16 +818,40 @@ def main():
 
     cfg = process_args(flagship_cfg())   # derives cfg.tasks
     scfg = SynthStatic.from_cfg(cfg)
-    recs = check_kernels(scfg, dev)
-    check_slice_reference(cfg, dev)
-    launches = run_slice(cfg, dev, power)
+    elapsed, t0 = {}, time.perf_counter()
 
+    def lap(name):
+        nonlocal t0
+        elapsed[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    recs, serving = check_kernels(scfg, dev)
+    lap("kernel")
+    check_slice_reference(cfg, dev)
+    lap("slice_reference")
+    slice_launches, state = run_slice(cfg, dev, power)
+    lap("slice")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_serve_reference(dev, tmp)
+        lap("serve_reference")
+        serve_launches = run_serve(flagship_cfg(), state, dev, power, tmp)
+        lap("serve")
+    del state
+    emit({"phase": "elapsed_s", **elapsed})
+
+    keys = ("case", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name],
+         "launches": slice_launches[name] + serve_launches[name],
+         "launches_by_path": {"slice": slice_launches[name],
+                              "serve": serve_launches[name]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "serving_case": ({k: serving[name][k] for k in keys}
+                          if name in serving else None)}
         for name, r in recs.items()]})
     print(gpu_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

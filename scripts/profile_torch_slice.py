@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the PyTorch port's flagship slice on one GPU.
+"""Device-time breakdown of the PyTorch port's flagship slice and of one
+served volume on one GPU.
 
     python3 scripts/profile_torch_slice.py
 
 Builds the same flagship item and L6 f_maps-64 model as chip_smoke.py
 (cfgs brain_id + joint, 160^3 from a 192^3 bank, S=4, bf16 forward), runs
 one warm-up pass, then profiles one synth_item and one forward, each in its
-own torch.profiler session (CPU + CUDA activity). For each it prints one
-JSON line: host wall ms, the summed device time of all GPU kernels (they
-run on one stream, so this is the device's busy time), the idle share
-1 - busy/wall, the share of the port's own CUDA kernels (csrc/), and the
-top kernels by device time. Chrome traces go to outs/profile_torch_slice/
-(git-ignored).
+own torch.profiler session (CPU + CUDA activity). Then `profile_serve`: one
+procedural head (chip_smoke.py's serve input) served whole at 220^3 by the
+same model in bf16 through Inferencer.evaluate_path (serial, every output
+but the segmentation written as .nii), once unprofiled and once profiled
+after a warm-up. For each it prints one JSON line: host wall ms, the summed
+device time of all GPU kernels (they run on one stream, so this is the
+device's busy time), the idle share 1 - busy/wall (for serve also against
+the unprofiled wall of the same run), the share of the port's own CUDA
+kernels (csrc/), and the top kernels by device time. Last, a cProfile of
+one prepare_image call on the served file: its top host functions. Chrome
+traces go to outs/profile_torch_slice/ (git-ignored).
 """
 
 from __future__ import annotations
 
+import cProfile
 import json
 import os
+import pstats
 import sys
+import tempfile
 import time
 
 import torch
@@ -28,9 +37,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (flagship config and constants)
+from brainfm_tpu_torch.infer import Inferencer, prepare_image  # noqa: E402
 from brainfm_tpu_torch.models import apply_processors, build_model  # noqa: E402
 from brainfm_tpu_torch.synth import (SubjectBank, SynthStatic,  # noqa: E402
                                      knobs_from_cfg, synth_item)
+from brainfm_tpu_torch.utils.nifti import save_nifti  # noqa: E402
 
 # kernel names of brainfm_tpu_torch/csrc
 OWN = ("warp_linear_kernel", "warp_nearest_kernel", "lut_row_kernel",
@@ -45,7 +56,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def breakdown(name, fn, out_dir):
+def breakdown(name, fn, out_dir, unprofiled_wall_ms=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -68,6 +79,9 @@ def breakdown(name, fn, out_dir):
            "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / wall_ms) if wall_ms > 0 else None,
            "own_kernels_ms": own_ms, "n_kernel_names": len(kern),
+           "unprofiled_wall_ms": unprofiled_wall_ms,
+           "idle_share_unprofiled": (None if unprofiled_wall_ms is None
+                                     else 1 - busy_ms / unprofiled_wall_ms),
            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n}
                    for k, (us, n) in top]}
     print(json.dumps(rec), flush=True)
@@ -108,7 +122,57 @@ def main():
     print(chip_smoke.gpu_name_power(), flush=True)
     breakdown("item", item, out_dir)
     breakdown("forward", forward, out_dir)
+    profile_serve(cfg, model.state_dict(), dev, out_dir)
     return 0
+
+
+def profile_serve(cfg, state, dev, out_dir):
+    inf = Inferencer(cfg, compute_dtype=torch.bfloat16, exact=False,
+                     device=dev)
+    inf.model.load_state_dict(state)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "head.nii")
+        save_nifti(path, chip_smoke.procedural_head(
+            chip_smoke.SERVE_SHAPE, chip_smoke.SERVE_VOXEL_MM, 10, dev),
+            chip_smoke.serve_affine(chip_smoke.SERVE_SHAPE,
+                                    chip_smoke.SERVE_VOXEL_MM))
+
+        def serve():
+            inf.evaluate_path([path], os.path.join(tmp, "out"),
+                              win_size=chip_smoke.SERVE_WIN, prefetch=False,
+                              exclude_keys=("segmentation",), ext=".nii")
+
+        serve()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        breakdown("serve", serve, out_dir,
+                  unprofiled_wall_ms=(time.perf_counter() - t0) * 1e3)
+        host_profile("prepare", lambda: prepare_image(
+            path, list(chip_smoke.SERVE_WIN), device=dev))
+
+
+def host_profile(name, fn):
+    """cProfile of one call, ended by a synchronize: the top functions
+    by their own host time (cProfile's overhead inflates Python-heavy
+    functions; the wall is taken around the profiled call)."""
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:TOP]
+    print(json.dumps({"phase": f"host_profile_{name}", "wall_ms": wall_ms,
+                      "top": [{"function": f"{os.path.basename(f)}:{line}:"
+                               f"{fn_name}", "own_ms": tt * 1e3,
+                               "cum_ms": ct * 1e3, "calls": nc}
+                              for (f, line, fn_name), (_, nc, tt, ct, _)
+                              in rows]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,9 @@ nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +15,8 @@ import torch
 from brainfm_tpu_torch.ops import interp, lut, warp
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # same fp32 operation order, no multiply-add contraction: expect 0
 LINEAR_ATOL = 1e-5
@@ -155,6 +160,80 @@ def test_lut_gather_misaligned_views(dev, shape, dtype):
                         dtype=torch.int32)
     for t, i in ((table, _offset_view(idx)), (_offset_view(table), idx)):
         assert torch.equal(lut.lut_apply(t, i), lut.lut_apply_plain(t, i))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_warp_linear_atlas_shape(dev):
+    """Serving's deformed atlas: a 256^3 source on a 220^3 affine grid
+    whose corners leave the atlas, edge coordinates at the head."""
+    cs = _chip_smoke()
+    g = torch.Generator(dev).manual_seed(6)
+    atlas = torch.rand(cs.ATLAS_SHAPE, generator=g, device=dev)
+    grid = cs.with_edges(cs.atlas_grid(dev), cs.ATLAS_SHAPE[0])
+    ok = cs.in_bounds(*grid, cs.ATLAS_SHAPE)
+    assert 0.5 < float(ok.float().mean()) < 1.0
+    _assert_linear(atlas, grid, 0.0)
+
+
+def test_lut_labels_on_cast_argmax(dev):
+    """Serving's label map: the (56,) int32 label table over an argmax
+    (int64) cast to int32."""
+    from brainfm_tpu_torch.synth import LABELS_EXTRACEREBRAL
+
+    g = torch.Generator(dev).manual_seed(7)
+    logits = torch.randn((1, 60, 61, 62, 56), generator=g, device=dev)
+    idx = logits.argmax(-1)
+    assert idx.dtype == torch.int64
+    table = torch.tensor(LABELS_EXTRACEREBRAL, dtype=torch.int32, device=dev)
+    got = lut.lut_apply(table, idx.to(torch.int32))
+    assert got.dtype == torch.int32
+    assert torch.equal(got, table[idx])
+
+
+def test_small_inferencer_gpu_matches_cpu(dev, tmp_path):
+    """A small model served on the GPU (fp32, TF32 off) and on the CPU from
+    one state dict: every output, the labels (K2) and the deformed atlas
+    (K1), the atlas on the same inputs."""
+    from brainfm_tpu_torch.infer import (Inferencer, get_deformed_atlas,
+                                         prepare_image)
+    from brainfm_tpu_torch.utils.nifti import save_nifti
+
+    cs = _chip_smoke()
+    shape, vox = (30, 36, 24), cs.SERVE_VOXEL_MM
+    img = str(tmp_path / "h.nii")
+    save_nifti(img, cs.procedural_head(shape, vox, 3, "cpu"),
+               cs.serve_affine(shape, vox))
+    atlas = str(tmp_path / "a.mgz")
+    cs.write_mgz(atlas, cs.procedural_atlas((48, 48, 48), 4, "cpu"),
+                 (4.0, 4.0, 4.0))
+    gpu = Inferencer(cs.small_model_cfg(), device=dev)
+    cpu = Inferencer(cs.small_model_cfg(), device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    kw = dict(win_size=[32, 32, 32], spacing=(1.0, 2.0, 1.0))
+    ig = prepare_image(img, device=dev, **kw)[0]
+    ic = prepare_image(img, device="cpu", **kw)[0]
+    assert float((ig.cpu() - ic).abs().max()) <= cs.REPLAY_TOL
+    og = gpu.evaluate_image(ig, keep_feat=False)
+    oc = cpu.evaluate_image(ic, keep_feat=False)
+    assert set(og) == set(oc)
+    for k in og:
+        if k == "label":
+            agree = float((og[k].cpu() == oc[k]).float().mean())
+            assert agree >= cs.SEG_AGREE, agree
+        else:
+            assert cs._rel_err(og[k], oc[k]) <= cs.MODEL_TOL, k
+    args = [oc[k][0, ..., 0] for k in ("label", "regx", "regy", "regz")]
+    ag = get_deformed_atlas(*[a.to(dev) for a in args], atlas_path=atlas)
+    ac = get_deformed_atlas(*args, atlas_path=atlas)
+    assert float((ag.cpu() - ac).abs().max()) <= LINEAR_ATOL
 
 
 def test_wrappers_reject_bad_inputs(dev):

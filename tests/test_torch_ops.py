@@ -155,6 +155,28 @@ def test_linear_resample_matrix_matches_jax(n_out, n_in, mask):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+@pytest.mark.parametrize("n_in", [4, 9])
+def test_linear_resample_matrix_mask_denormals_match_jax(n_in):
+    """mask_oob's lower bound at the denormals: XLA flushes them to zero,
+    so the reference's `coords > 0` masks them; the port's `>= FLT_MIN`
+    must give the same rows (zero rows for the denormals)."""
+    from brainfm_tpu.ops import separable as jsep
+
+    hi = np.float32(n_in - 1)
+    den_lo = np.nextafter(np.float32(0), np.float32(1))
+    den_hi = np.nextafter(FLT_MIN, np.float32(0))
+    coords = np.array([0.0, den_lo, FLT_MIN, den_hi, 0.5, hi,
+                       np.nextafter(hi, np.float32(n_in))], np.float32)
+    want = np.asarray(jsep.linear_resample_matrix(jnp.asarray(coords), n_in,
+                                                  mask_oob=True))
+    got = separable.linear_resample_matrix(torch.from_numpy(coords), n_in,
+                                           mask_oob=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    # rows 0, 1, 3 and 6 (0, both denormals, just above n-1) are masked
+    assert not want[[0, 1, 3, 6]].any()
+    assert want[[2, 4, 5]].sum(1).tolist() == [1.0, 1.0, 1.0]
+
+
 def test_separable_and_gaussian_matrix_match_jax():
     """Matrix products in fp32 on both sides: tolerance for summation
     order (values O(1))."""

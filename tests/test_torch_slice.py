@@ -235,8 +235,14 @@ def test_chip_smoke_fails_without_gpu():
     assert '"ok": true' not in out.stdout
 
 
-def test_entry_points_refuse_cpu_fallback():
-    """Without CUDA the entry points raise unless asked for the CPU."""
+def test_entry_points_refuse_cpu_fallback(tmp_path):
+    """Without CUDA the entry points raise unless asked for the CPU:
+    build_model, the subject bank, the Inferencer, prepare_image and the
+    serving CLI."""
+    from brainfm_tpu_torch.infer import Inferencer, prepare_image
+    from brainfm_tpu_torch.scripts import demo_test
+    from brainfm_tpu_torch.utils.nifti import save_nifti
+
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -246,3 +252,12 @@ def test_entry_points_refuse_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         bank.to_device(0)
     assert bank.to_device(0, "cpu")["gen"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Inferencer(flagship_cfg(tload))
+    img = str(tmp_path / "v.nii")
+    save_nifti(img, np.ones((8, 8, 8), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prepare_image(img)
+    assert prepare_image(img, device="cpu")[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo_test.main([img, "--save_dir", str(tmp_path / "out")])

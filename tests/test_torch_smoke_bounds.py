@@ -70,6 +70,8 @@ def test_kernel_cases_cover_every_kernel(monkeypatch):
     one case per path shape, every C function covered, each library call
     of the output's size, and the byte bound at least the output's bytes."""
     monkeypatch.setattr(chip_smoke, "BANK", (24, 24, 24))
+    monkeypatch.setattr(chip_smoke, "SERVE_WIN", (14, 15, 16))
+    monkeypatch.setattr(chip_smoke, "ATLAS_SHAPE", (16, 16, 16))
     cfg = chip_smoke.process_args(chip_smoke.flagship_cfg())
     scfg = chip_smoke.SynthStatic.from_cfg(cfg)
     scfg = chip_smoke.SynthStatic(**{**scfg.__dict__, "size": (12, 12, 12)})
@@ -77,8 +79,11 @@ def test_kernel_cases_cover_every_kernel(monkeypatch):
     assert [c.name for c in cases] == [
         "warp_linear_f32 C=12", "warp_linear_f32 C=1", "warp_nearest_i32",
         "lut_gather_i32 K=10000", "lut_gather_i32 K=56",
-        "lut_gather_f32 K=256 C=8"]
+        "lut_gather_f32 K=256 C=8", *chip_smoke.SERVING_CASES]
     assert {c.fn for c in cases} == set(chip_smoke.SOURCES)
+    # the atlas grid reaches past the atlas at its corners
+    ii = chip_smoke.atlas_grid(torch.device("cpu"))[0]
+    assert ii.min() < 0 or ii.max() > 15
     for c in cases:
         got, want = c.kernel(), c.plain()
         assert torch.equal(got, want), c.name
