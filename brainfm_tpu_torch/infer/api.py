@@ -21,6 +21,7 @@ import torch
 from ..device import exact_fp32, resolve_device
 from ..models.build import apply_processors, build_model, postprocess
 from ..models.params_io import load_pth
+from ..train.checkpoint import is_checkpoint_dir, load_model_weights
 from ..ops.warp import warp_volume
 from ..utils.nifti import MRIread, viewVolume
 from .prepare import prepare_image
@@ -38,8 +39,10 @@ class Inferencer:
     exact: TF32 off for this Inferencer's calls (`device.exact_fp32`), the
     counterpart of the JAX package's `highest` matmul precision, which it
     also scopes to one Inferencer rather than setting it process-wide.
-    ckpt_path: a `.pth` / `.pt` state dict (`models.params_io.load_pth`);
-    without one the weights are random, from seed 0, alike on every device.
+    ckpt_path: a `.pth` / `.pt` state dict (`models.params_io.load_pth`)
+    or a checkpoint directory of `train/checkpoint.py` (its model
+    weights); without one the weights are random, from seed 0, alike on
+    every device.
     """
 
     def __init__(self, cfg, ckpt_path: str | None = None,
@@ -60,11 +63,15 @@ class Inferencer:
             self.model.double()
         if ckpt_path and str(ckpt_path).endswith((".pth", ".pt")):
             load_pth(self.model, str(ckpt_path))
+        elif ckpt_path and is_checkpoint_dir(ckpt_path):
+            load_model_weights(str(ckpt_path), self.model)
         elif ckpt_path:
             raise NotImplementedError(
-                f"{ckpt_path}: orbax checkpoint directories are read by the "
-                "port of train/checkpoint.py, which comes with the train "
-                "step; pass a .pth or .pt state dict")
+                f"{ckpt_path}: neither a .pth / .pt state dict nor a "
+                "checkpoint directory of the port (train/checkpoint.py). "
+                "The JAX package's orbax checkpoints are not read here: its "
+                "weights cross as numpy arrays through "
+                "models/params_io.from_jax_params")
         self.model.eval()
         self._in_dtype = (torch.float64 if compute_dtype == torch.float64
                           else torch.float32)

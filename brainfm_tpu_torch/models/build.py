@@ -90,6 +90,19 @@ def _to_ncdhw(x):
     return x.permute(0, 4, 1, 2, 3)
 
 
+def _model_input(x):
+    """The backbone's NCDHW input. A one-channel input keeps the
+    channels-last strides its permute gives, and the network runs in that
+    layout on the card, as measured since the first slice. On the CPU it
+    gets plain NCDHW strides: PyTorch's CPU GroupNorm backward faults on a
+    channels-last input that needs no gradient (the first GroupNorm in
+    training)."""
+    x = _to_ncdhw(x)
+    if x.device.type == "cpu":
+        return x.clone(memory_format=torch.contiguous_format)
+    return x.contiguous()
+
+
 def _to_ndhwc(x):
     return x.permute(0, 2, 3, 4, 1)
 
@@ -107,7 +120,7 @@ class Joiner(nn.Module):
     def forward(self, x, cond=None):
         if cond is not None:
             x = torch.cat([x, cond], dim=-1)
-        feats = self.backbone.get_feature(_to_ncdhw(x).contiguous())
+        feats = self.backbone.get_feature(_model_input(x))
         out = {"feat": [_to_ndhwc(f) for f in feats]}
         if self.head is not None:
             out.update({k: _to_ndhwc(v) for k, v in self.head(feats).items()})
@@ -115,15 +128,23 @@ class Joiner(nn.Module):
 
 
 def build_backbone(cfg, name: str | None = None):
+    """The UNet3D of cfg; cfg.remat sets its blocks' rematerialization in
+    the backward pass (unet3d.remat_mode: False, True/'full',
+    'save_convs'). A conditioned config (cfg.condition 'mask', 'flip' or
+    'mask+flip') widens the input by one channel per term, the channels
+    the train step concatenates (train/loop.py::apply_condition)."""
     name = name or cfg.backbone or "unet3d"
     if name != "unet3d":
         raise NotImplementedError(f"backbone {name!r} is not ported yet")
-    return UNet3D(in_channels=int(cfg.in_channels or 1),
+    cond_terms = sum(t in str(cfg.get("condition") or "")
+                     for t in ("mask", "flip"))
+    return UNet3D(in_channels=int(cfg.in_channels or 1) + cond_terms,
                   f_maps=int(cfg.f_maps or 64),
                   num_levels=int(cfg.num_levels or 5),
                   layer_order=cfg.layer_order or "gcl",
                   num_groups=int(cfg.num_groups or 8),
-                  is_unit_vector=bool(cfg.unit_feat))
+                  is_unit_vector=bool(cfg.unit_feat),
+                  remat=cfg.get("remat") or False)
 
 
 def build_model(cfg, device=None):
@@ -135,6 +156,19 @@ def build_model(cfg, device=None):
     head = TaskHead(int(cfg.f_maps or 64), tuple(cfg.task_f_maps or [64]),
                     dict(cfg.out_channels))
     return cfg, Joiner(backbone, head).to(dev)
+
+
+def build_critic_from_cfg(cfg):
+    """The frozen implicit-pathology critic of losses.implicit_pathol:
+    (None, None, None) when the flag is off. The critic scores pathology,
+    which comes with the pathology slice of the port, so the flag raises
+    rather than being ignored."""
+    losses = cfg.losses if getattr(cfg, "losses", None) else None
+    if not (losses and losses.get("implicit_pathol")):
+        return None, None, None
+    raise NotImplementedError(
+        "losses.implicit_pathol needs the pathology critic, which is not "
+        "ported yet (the pathology slice, ROADMAP Queue 1)")
 
 
 def apply_processors(outputs: dict, cfg) -> dict:

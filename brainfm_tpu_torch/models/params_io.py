@@ -7,6 +7,10 @@ brainfm_tpu/models/torch_import.py::torch_to_flax_params parses, so the
 two functions are inverses. Conv kernels go (kd,kh,kw,cin,cout) ->
 (cout,cin,kd,kh,kw); dtypes are kept.
 
+`from_jax_opt_state` turns the JAX package's optimizer state (optax Adam,
+AdamW, SGD or LARS; numpy leaves) into the state dict of the port's
+optimizer, so a JAX run can be continued by the port.
+
 `load_pth` reads a reference `.pth` / `.pt` state dict straight into the
 port's Joiner: the port's parameter names are the reference's.
 """
@@ -62,6 +66,48 @@ def from_jax_params(params) -> dict:
             a = np.transpose(a, (4, 3, 0, 1, 2))
         sd[_torch_key(path)] = torch.from_numpy(np.array(a))  # a writable copy
     return sd
+
+
+def _find(state, fields):
+    """The first namedtuple of an optax state tree (namedtuples, tuples,
+    dicts) that has every field in `fields`."""
+    if set(fields) <= set(getattr(state, "_fields", ())):
+        return state
+    children = (state.values() if isinstance(state, dict)
+                else state if isinstance(state, tuple) else ())
+    for c in children:
+        hit = _find(c, fields)
+        if hit is not None:
+            return hit
+    return None
+
+
+def from_jax_opt_state(opt_state, model, optimizer) -> dict:
+    """optax state -> `optimizer.state_dict()` of the port's optimizer over
+    `model.parameters()`, in the port's parameter order. Adam and AdamW
+    (ScaleByAdamState: count, mu, nu) give `step`, `exp_avg` and
+    `exp_avg_sq`; SGD and LARS (TraceState: trace) give
+    `momentum_buffer`. The param_groups are the optimizer's own."""
+    order = {name: i for i, (name, _) in
+             enumerate(model.named_parameters())}
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    trace = _find(opt_state, ("trace",))
+    if adam is not None:
+        trees = {"exp_avg": adam.mu, "exp_avg_sq": adam.nu}
+        step = torch.tensor(float(np.asarray(adam.count)))
+    elif trace is not None:
+        trees, step = {"momentum_buffer": trace.trace}, None
+    else:
+        raise ValueError("no Adam or trace state in the optax state")
+    state: dict = {}
+    for key, tree in trees.items():
+        for name, t in from_jax_params(tree).items():
+            st = state.setdefault(order[name], {})
+            st[key] = t
+            if step is not None:
+                st["step"] = step.clone()
+    sd = optimizer.state_dict()
+    return {"state": state, "param_groups": sd["param_groups"]}
 
 
 def load_pth(model, path: str):

@@ -10,15 +10,20 @@ loads by name (models/params_io.py).
 The JAX package's TPU workarounds are not ported; their plain forms are,
 which tests/test_phase_upconv.py proves equal: `_phase_upconv` /
 `_phase_pair_conv` and `_pair_groupnorm` / `_fused_groupnorm` are plain
-upsample + concat + Conv3d and nn.GroupNorm; `_remat_block` and
-`_replicate_if_degenerate` have no counterpart.
+upsample + concat + Conv3d and nn.GroupNorm; `_replicate_if_degenerate`
+has no counterpart. `_remat_block` is each DoubleConv's `remat` mode
+(`remat_mode`), honoured when gradients are recorded.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def feature_maps(f_maps: int, num_levels: int) -> list[int]:
@@ -70,12 +75,40 @@ class SingleConv(nn.Module):
         return x
 
 
+def remat_mode(remat):
+    """The rematerialization mode of cfg.remat: False (save everything),
+    'full' (True or 'full': recompute the whole block in the backward) or
+    'save_convs' (keep only the convolution outputs, recompute the
+    GroupNorm / activation chain). Any other value raises."""
+    if not remat:
+        return False
+    if remat is True or remat == "full":
+        return "full"
+    if remat == "save_convs":
+        return "save_convs"
+    raise ValueError(f"unknown remat mode {remat!r}: expected False, "
+                     "True/'full', or 'save_convs'")
+
+
+def _save_convs_policy(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_KW = {"full": {},
+             "save_convs": {"context_fn": functools.partial(
+                 create_selective_checkpoint_contexts, _save_convs_policy)}}
+
+
 class DoubleConv(nn.Module):
-    """Two SingleConvs with the encoder halving rule."""
+    """Two SingleConvs with the encoder halving rule. With `remat` set and
+    gradients recorded, the block runs under activation checkpointing."""
 
     def __init__(self, in_channels, out_channels, encoder, order="gcl",
-                 num_groups=8):
+                 num_groups=8, remat=False):
         super().__init__()
+        self.remat = remat_mode(remat)
         conv1_out = (max(out_channels // 2, in_channels) if encoder
                      else out_channels)
         self.SingleConv1 = SingleConv(in_channels, conv1_out, order,
@@ -83,16 +116,24 @@ class DoubleConv(nn.Module):
         self.SingleConv2 = SingleConv(conv1_out, out_channels, order,
                                       num_groups)
 
-    def forward(self, x):
+    def _block(self, x):
         return self.SingleConv2(self.SingleConv1(x))
+
+    def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._block, x, use_reentrant=False,
+                              preserve_rng_state=False,
+                              **_REMAT_KW[self.remat])
+        return self._block(x)
 
 
 class Encoder(nn.Module):
-    def __init__(self, in_channels, out_channels, pool, order, num_groups):
+    def __init__(self, in_channels, out_channels, pool, order, num_groups,
+                 remat=False):
         super().__init__()
         self.pool = pool
         self.basic_module = DoubleConv(in_channels, out_channels, True, order,
-                                       num_groups)
+                                       num_groups, remat)
 
     def forward(self, x):
         if self.pool:
@@ -112,10 +153,11 @@ def _nearest_upsample_to(x, target_spatial):
 
 
 class Decoder(nn.Module):
-    def __init__(self, in_channels, out_channels, order, num_groups):
+    def __init__(self, in_channels, out_channels, order, num_groups,
+                 remat=False):
         super().__init__()
         self.basic_module = DoubleConv(in_channels, out_channels, False, order,
-                                       num_groups)
+                                       num_groups, remat)
 
     def forward(self, enc, x):
         x = _nearest_upsample_to(x, enc.shape[2:])
@@ -124,16 +166,18 @@ class Decoder(nn.Module):
 
 class UNet3D(nn.Module):
     def __init__(self, in_channels=1, f_maps=64, num_levels=5,
-                 layer_order="gcl", num_groups=8, is_unit_vector=False):
+                 layer_order="gcl", num_groups=8, is_unit_vector=False,
+                 remat=False):
         super().__init__()
         fm = feature_maps(f_maps, num_levels)
         self.is_unit_vector = is_unit_vector
         self.encoders = nn.ModuleList(
             Encoder(in_channels if i == 0 else fm[i - 1], fm[i], i > 0,
-                    layer_order, num_groups) for i in range(num_levels))
+                    layer_order, num_groups, remat) for i in range(num_levels))
         rev = fm[::-1]
         self.decoders = nn.ModuleList(
-            Decoder(rev[i + 1] + rev[i], rev[i + 1], layer_order, num_groups)
+            Decoder(rev[i + 1] + rev[i], rev[i + 1], layer_order, num_groups,
+                    remat)
             for i in range(num_levels - 1))
 
     def forward(self, x):

@@ -445,14 +445,23 @@ class SubjectBank:
         if key in self._dev_cache:
             self._dev_cache.move_to_end(key)
             return self._dev_cache[key]
-        # float64 host volumes arrive as float32, as jnp.asarray gives them
-        out = {k: torch.as_tensor(np.asarray(
-            v, np.float32 if np.asarray(v).dtype == np.float64 else None))
-            .to(dev) for k, v in self.subjects[idx].items()}
+        out = self.stage(idx, dev)
         while len(self._dev_cache) >= cache_size:
             self._dev_cache.popitem(last=False)
         self._dev_cache[key] = out
         return out
+
+    def stage(self, idx: int, device=None):
+        """One-shot device view of subject `idx` (default device: CUDA),
+        not cached: its tensors are freed once the caller drops them, so
+        no bank volume stays on the card while the train step runs
+        (cfg subject_staging: host). Costs one host-to-device copy of the
+        subject per draw."""
+        dev = resolve_device(device)
+        # float64 host volumes arrive as float32, as jnp.asarray gives them
+        return {k: torch.as_tensor(np.asarray(
+            v, np.float32 if np.asarray(v).dtype == np.float64 else None))
+            .to(dev) for k, v in self.subjects[idx].items()}
 
     def __len__(self):
         return len(self.subjects)

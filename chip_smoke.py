@@ -27,16 +27,31 @@ Phases, one JSON line each:
                Inferencer.evaluate_path, the deformed atlas on a 256^3
                atlas, one tiled pass; stage times per volume; launch counts
                over those steps.
-Then the `kernels` summary line (launches on both paths), the card's name
-and power limit, and the result line. Exits non-zero, printing no result,
-when a phase fails or no GPU is present.
+  7. train_reference - a small model (f_maps 8, 3 levels, 32^3, S=4, fp32,
+               TF32 off): one train step's losses and gradients on the GPU
+               against the CPU from the same params and batch, the params
+               after one SGD step, a batch with a NaN voxel that must leave
+               the GPU state bitwise as it was, and a checkpoint saved and
+               loaded back bitwise on the card.
+  8. train   - the flagship training configuration (the slice's, bf16,
+               AdamW with its warmup) through train/loop.py::train for one
+               epoch of TRAIN_ITR iterations with validation and
+               checkpoints, then TRAIN_TIMED timed iterations (item, step);
+               every step's loss and skip flag, peak memory, launch counts
+               over the phase.
+Then the elapsed seconds per phase, the `kernels` summary line (launches on
+the slice, serve and train paths), the card's name and power limit, and the
+result line. Exits non-zero, printing no result, when a phase fails or no
+GPU is present.
 """
 
 from __future__ import annotations
 
+import copy
 import gzip
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -54,6 +69,7 @@ from brainfm_tpu_torch.infer import (Inferencer, get_deformed_atlas,
                                      prepare_image, tile_plan)
 from brainfm_tpu_torch.models import (apply_processors, build_model,
                                       process_args)
+from brainfm_tpu_torch.models.criterion import make_criterion, weighted_total
 from brainfm_tpu_torch.ops.interp import nearest3d, trilinear3d
 from brainfm_tpu_torch.ops.lut import lut_apply, lut_apply_plain
 from brainfm_tpu_torch.ops.warp import warp_labels, warp_volume
@@ -62,6 +78,10 @@ from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
                                      knobs_from_cfg, random_affine,
                                      random_nonlinear_field, sample_setup,
                                      synth_item)
+from brainfm_tpu_torch.train import (build_optimizer, build_schedules,
+                                     load_checkpoint, make_batch,
+                                     make_train_step, save_checkpoint, train)
+from brainfm_tpu_torch.train.step import TrainState, batch_losses
 from brainfm_tpu_torch.utils.nifti import load_nifti, save_nifti
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -91,6 +111,22 @@ SERVE_VOXEL_MM = (1.2, 1.0, 1.5)
 # voxel axis 0 along +A, axis 1 along -S, axis 2 along -R
 SERVE_AXES = np.array([[0, 0, -1], [1, 0, 0], [0, -1, 0]], np.float64)
 ATLAS_SHAPE = (256, 256, 256)   # 1 mm, as the reference's gca.mgz
+
+# training: the flagship phase's iterations, and its memory settings, the
+# first in the order (save_convs, accum 1), (save_convs, accum 2),
+# (full, accum 2) that leaves 8 GB of the card free
+# (scripts/profile_torch_slice.py `fit_train`)
+TRAIN_ITR = 5
+TRAIN_TIMED = 3
+TRAIN_REMAT = "save_convs"
+TRAIN_ACCUM = 1
+# train_reference (check_train_reference says why each precision): losses
+# to 1e-4 relative; each gradient tensor and the SGD update, at fp64, to
+# 1e-3 relative L2; at fp32 the GPU's gradients no further from the fp64
+# ones than 4x the CPU's fp32 gradients are
+LOSS_TOL = 1e-4
+GRAD_TOL = 1e-3
+FP32_GRAD_FACTOR = 4.0
 
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
@@ -802,6 +838,300 @@ def run_serve(cfg, state, dev, power, tmp):
     return launches
 
 
+def train_ref_cfg():
+    """The train_reference model: the flagship config at f_maps 8, 3
+    levels, 32^3, no autocast, SGD (params after one step compare; Adam's
+    first step g / (|g| + eps) would magnify rounding in near-zero
+    gradients)."""
+    cfg = small_model_cfg()
+    cfg.num_levels = 3
+    cfg.generator.size = [32, 32, 32]
+    cfg.optimizer, cfg.lr, cfg.amp = "sgd", 1e-2, False
+    return cfg
+
+
+def ref_train_batch(cfg, seed=0, B=1, S=4):
+    """A train batch made on the CPU from a numpy seed. Distance targets
+    stay inside (-2.5, 2.5), away from the head's clamp at +-3, where
+    gradients would tie."""
+    rng = np.random.default_rng(seed)
+    size = tuple(cfg.generator.size)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    lab = rng.integers(0, cfg.n_labels, (B, 1, *size))
+    return {"samples": {"input": t(rng.random((B, S, *size, 1))),
+                        "bias_field_log": t(0.1 * rng.standard_normal(
+                            (B, S, *size, 1)))},
+            "targets": {"T1": t(rng.random((B, 1, *size, 1))),
+                        "segmentation": t(np.eye(cfg.n_labels)[lab]),
+                        "distance": t(rng.uniform(-2.5, 2.5,
+                                                  (B, 1, *size, 4))),
+                        "registration": t(rng.standard_normal(
+                            (B, 1, *size, 3)))}}
+
+
+def _to_dev(batch, dev):
+    return {k: {kk: vv.to(dev) for kk, vv in v.items()}
+            for k, v in batch.items()}
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def _loss_and_grads(model, cfg, weight_dict, loss_fn, batch):
+    """The losses and every parameter's gradient of one backward."""
+    model.zero_grad(set_to_none=True)
+    losses = batch_losses(model, cfg, loss_fn, batch, amp=False)
+    losses["loss_total"] = weighted_total(losses, weight_dict)
+    losses["loss_total"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def _state_tensors(state):
+    """Every tensor of a TrainState (params, optimizer state), cloned."""
+    out = {f"param.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out[f"opt.{i}.{k}"] = v.detach().clone()
+    return out
+
+
+def _bitwise_diff(a: dict, b: dict):
+    """Keys whose tensors differ in any bit (or are missing)."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].shape != b[k].shape
+                  or not torch.equal(a[k].view(torch.uint8) if a[k].dim()
+                                     else a[k], b[k].view(torch.uint8)
+                                     if b[k].dim() else b[k]))
+
+
+def _global_rel_l2(a: dict, b: dict):
+    return _rel_l2(torch.cat([a[k].double().cpu().flatten() for k in b]),
+                   torch.cat([b[k].double().cpu().flatten() for k in b]))
+
+
+def check_train_reference(dev, tmp):
+    """One train step of a small model on the GPU and on the CPU from the
+    same params and batch; the NaN skip and a checkpoint round trip on the
+    card.
+
+    fp32 (TF32 off): the losses agree to LOSS_TOL, and the GPU's gradients
+    are as close to the CPU's fp64 gradients as the CPU's own fp32 ones
+    (global relative L2, within FP32_GRAD_FACTOR). Per tensor, fp32
+    gradients of this model are not defined to 1e-3 on either device: a
+    GroupNorm's bias and weight gradients behind the next GroupNorm, and
+    the weight gradients of random targets, are sums that cancel, so the
+    CPU's own fp32 gradients miss its fp64 ones by more than that. So
+    each gradient tensor and the SGD update are held at fp64 on both
+    devices, to GRAD_TOL."""
+    cfg = process_args(train_ref_cfg())
+    torch.manual_seed(0)
+    _, m32c = build_model(cfg, device="cpu")
+    models = {"cpu32": m32c, "gpu32": copy.deepcopy(m32c).to(dev),
+              "cpu64": copy.deepcopy(m32c).double(),
+              "gpu64": copy.deepcopy(m32c).double().to(dev)}
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    b32 = ref_train_batch(cfg)
+    b64 = {k: {kk: vv.double() for kk, vv in v.items()}
+           for k, v in b32.items()}
+    batches = {"cpu32": b32, "gpu32": _to_dev(b32, dev), "cpu64": b64,
+               "gpu64": _to_dev(b64, dev)}
+    losses, grads = {}, {}
+    for k, m in models.items():
+        losses[k], grads[k] = _loss_and_grads(m, cfg, weight_dict, loss_fn,
+                                              batches[k])
+
+    def loss_rel(a, b):
+        return {k: abs(losses[a][k] - losses[b][k])
+                / max(abs(losses[b][k]), 1e-30) for k in losses[b]}
+
+    loss_rel32, loss_rel64 = loss_rel("gpu32", "cpu32"), loss_rel("gpu64",
+                                                                  "cpu64")
+    grad_rel64 = {k: _rel_l2(grads["gpu64"][k], grads["cpu64"][k])
+                  for k in grads["cpu64"]}
+    fp32_err = {d: _global_rel_l2(grads[f"{d}32"], grads["cpu64"])
+                for d in ("gpu", "cpu")}
+
+    # one SGD step at fp64 on both devices
+    before = {k: v.detach().clone() for k, v in
+              models["cpu64"].state_dict().items()}
+    states, metrics = {}, {}
+    for k in ("gpu64", "cpu64"):
+        m = models[k]
+        st = TrainState(m, build_optimizer(cfg, m.parameters()), 0)
+        step = make_train_step(m, cfg, weight_dict, loss_fn, st.optimizer)
+        states[k], metrics[k] = step(st, batches[k], cfg.lr, 0.0)
+    pg, pc = models["gpu64"].state_dict(), models["cpu64"].state_dict()
+    update_rel = max(_rel_l2(pg[k].cpu() - before[k], pc[k] - before[k])
+                     for k in pc if not torch.equal(pc[k], before[k]))
+    step_rel = {k: abs(float(metrics["gpu64"][k]) - float(metrics["cpu64"][k]))
+                / max(abs(float(metrics["cpu64"][k])), 1e-30)
+                for k in metrics["cpu64"] if k != "skipped"}
+
+    # a NaN voxel: the GPU state (params, momentum, step) must not move
+    nan_batch = {k: dict(v) for k, v in batches["gpu64"].items()}
+    x = nan_batch["samples"]["input"].clone()
+    x.view(-1)[12345] = float("nan")
+    nan_batch["samples"]["input"] = x
+    gstate = states["gpu64"]
+    snap, step0 = _state_tensors(gstate), gstate.step
+    step = make_train_step(gstate.model, cfg, weight_dict, loss_fn,
+                           gstate.optimizer)
+    gstate, nan_metrics = step(gstate, nan_batch, cfg.lr, 0.0)
+    nan_changed = _bitwise_diff(snap, _state_tensors(gstate))
+    nan_ok = (not nan_changed and gstate.step == step0
+              and float(nan_metrics["skipped"]) == 1.0
+              and all(np.isnan(float(v)) for k, v in nan_metrics.items()
+                      if k != "skipped"))
+
+    # a checkpoint saved and loaded on the card, into a model and
+    # optimizer of other values
+    path = save_checkpoint(os.path.join(tmp, "ref_ckp"), 1, gstate,
+                           extra={"epoch": 0})
+    torch.manual_seed(1)
+    _, m2 = build_model(cfg, device=dev)
+    m2.double()
+    st2 = TrainState(m2, build_optimizer(cfg, m2.parameters()), 0)
+    st2 = load_checkpoint(path, st2)
+    ckpt_changed = _bitwise_diff(_state_tensors(gstate), _state_tensors(st2))
+    ckpt_ok = not ckpt_changed and st2.step == gstate.step
+
+    bad = {f"fp32.{k}": v for k, v in loss_rel32.items()
+           if not v <= LOSS_TOL}
+    bad |= {f"fp64.{k}": v for k, v in loss_rel64.items()
+            if not v <= LOSS_TOL}
+    bad |= {f"step.{k}": v for k, v in step_rel.items() if not v <= LOSS_TOL}
+    bad |= {k: v for k, v in grad_rel64.items() if not v <= GRAD_TOL}
+    if not update_rel <= GRAD_TOL:
+        bad["sgd_update"] = update_rel
+    if not fp32_err["gpu"] <= FP32_GRAD_FACTOR * fp32_err["cpu"]:
+        bad["fp32_grads"] = fp32_err
+    if not nan_ok:
+        bad["nan_skip"] = nan_changed or dict(nan_metrics)
+    if not ckpt_ok:
+        bad["checkpoint"] = ckpt_changed
+    emit({"phase": "train_reference", "size": list(cfg.generator.size),
+          "f_maps": int(cfg.f_maps), "num_levels": int(cfg.num_levels),
+          "samples": 4, "fp32_loss_rel_err": loss_rel32,
+          "fp32_grad_global_rel_l2_vs_cpu_fp64": fp32_err,
+          "fp64_loss_rel_err_max": max(loss_rel64.values()),
+          "fp64_grad_rel_l2_max": max(grad_rel64.values()),
+          "fp64_grad_rel_l2_worst": max(grad_rel64, key=grad_rel64.get),
+          "fp64_sgd_step_metrics_rel_err_max": max(step_rel.values()),
+          "fp64_sgd_update_rel_l2_max": update_rel,
+          "nan_skip_bitwise": nan_ok, "checkpoint_bitwise": ckpt_ok,
+          "loss_tol": LOSS_TOL, "grad_tol": GRAD_TOL,
+          "fp32_grad_factor": FP32_GRAD_FACTOR})
+    if bad:
+        raise AssertionError(f"train_reference failed: {bad}")
+
+
+STEP_LINE = re.compile(r"epoch (\d+) it (\d+)/\d+ lr (\S+) loss (\S+) "
+                       r"skipped (\d+)")
+
+
+def run_train(dev, power, tmp, cfg=None, bank_shape=BANK):
+    """The flagship configuration trained through train(): one epoch of
+    TRAIN_ITR iterations (validation on one batch, the epoch and best
+    checkpoints), then TRAIN_TIMED iterations timed in two parts, each
+    ended by a synchronize: the item (make_batch: K1 and K2) and the step
+    (forward, backward, optimizer). Launch counts and peak memory over the
+    whole phase."""
+    cfg = flagship_cfg() if cfg is None else cfg
+    cfg.remat, cfg.grad_accum_samples = TRAIN_REMAT, TRAIN_ACCUM
+    cfg.n_epochs = 1
+    torch.manual_seed(0)
+    cfg, model = build_model(cfg, device=dev)
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    bank = SubjectBank(bank_shape)
+    bank.add_debug_subject(seed=0, extent=tuple(s * 5 // 6
+                                                for s in bank_shape))
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    out_dir = os.path.join(tmp, "train")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = train(cfg, model, weight_dict, loss_fn, bank, out_dir,
+                  itr_per_epoch=TRAIN_ITR, log_itr=1, val_itr=1,
+                  n_val_items=1, seed=0)
+    train_s = time.perf_counter() - t0
+    changed = sum(not torch.equal(init[k], v.cpu())
+                  for k, v in model.state_dict().items())
+    del init
+    with open(os.path.join(out_dir, "train.log")) as f:
+        steps = [{"epoch": int(m[1]), "it": int(m[2]), "lr": float(m[3]),
+                  "loss_total": float(m[4]), "skipped": int(m[5])}
+                 for m in STEP_LINE.finditer(f.read())]
+
+    scfg = SynthStatic.from_cfg(cfg)
+    knobs = knobs_from_cfg(cfg, scfg, "synth")
+    subj = bank.to_device(0, dev)
+    gen = torch.Generator(dev).manual_seed(2)
+    lr_s, wd_s = build_schedules(cfg, TRAIN_ITR)
+    step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
+                              state.optimizer, sample_accum=TRAIN_ACCUM)
+    timed = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = make_batch([gen], subj, scfg, cfg.tasks, "synth", knobs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch, float(lr_s[-1]), float(wd_s[-1]))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del batch
+        timed.append({"item_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3,
+                      "iter_ms": (t2 - t0) * 1e3,
+                      "loss_total": float(m["loss_total"]),
+                      "skipped": int(m["skipped"])})
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    files = {f: os.path.exists(os.path.join(out_dir, f))
+             for f in ("log.txt", f"ckp/ckpt_{TRAIN_ITR:06d}",
+                       "ckp/ckpt_best")}
+    bad = []
+    every = steps + timed
+    if len(steps) != TRAIN_ITR:
+        bad.append(f"{len(steps)} step lines in train.log")
+    if not all(np.isfinite(s["loss_total"]) and s["skipped"] == 0
+               for s in every):
+        bad.append(f"a non-finite or skipped step: {every}")
+    if changed == 0:
+        bad.append("no parameter changed")
+    if not all(files.values()):
+        bad.append(f"missing outputs {files}")
+    if min(launches.values()) < 1:
+        bad.append(f"path missed a kernel: {launches}")
+    emit({"phase": "train", "size": list(scfg.size), "bank": list(bank_shape),
+          "samples": scfg.all_samples, "f_maps": int(cfg.f_maps),
+          "num_levels": int(cfg.num_levels), "amp": "bf16",
+          "optimizer": cfg.optimizer, "remat": TRAIN_REMAT,
+          "grad_accum_samples": TRAIN_ACCUM, "itr_per_epoch": TRAIN_ITR,
+          "train_s": train_s, "steps": steps, "timed": timed,
+          "item_ms": [t["item_ms"] for t in timed],
+          "step_ms": [t["step_ms"] for t in timed],
+          "iter_ms": [t["iter_ms"] for t in timed],
+          "peak_mem_gib": peak, "params_changed": changed, "files": files,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"train phase failed: {bad}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -837,6 +1167,12 @@ def main():
         serve_launches = run_serve(flagship_cfg(), state, dev, power, tmp)
         lap("serve")
     del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_train_reference(dev, tmp)
+        lap("train_reference")
+        train_launches = run_train(dev, power, tmp)
+        lap("train")
     emit({"phase": "elapsed_s", **elapsed})
 
     keys = ("case", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms",
@@ -844,9 +1180,11 @@ def main():
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name],
-         "launches": slice_launches[name] + serve_launches[name],
+         "launches": (slice_launches[name] + serve_launches[name]
+                      + train_launches[name]),
          "launches_by_path": {"slice": slice_launches[name],
-                              "serve": serve_launches[name]},
+                              "serve": serve_launches[name],
+                              "train": train_launches[name]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],

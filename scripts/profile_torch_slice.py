@@ -15,9 +15,25 @@ after a warm-up. For each it prints one JSON line: host wall ms, the summed
 device time of all GPU kernels (they run on one stream, so this is the
 device's busy time), the idle share 1 - busy/wall (for serve also against
 the unprofiled wall of the same run), the share of the port's own CUDA
-kernels (csrc/), and the top kernels by device time. Last, a cProfile of
-one prepare_image call on the served file: its top host functions. Chrome
-traces go to outs/profile_torch_slice/ (git-ignored).
+kernels (csrc/), and the top kernels by device time. Then a cProfile of
+one prepare_image call on the served file: its top host functions.
+
+Then training (`fit_train`, `profile_train`): the flagship train step
+(AdamW, bf16 autocast, S=4 at 160^3) under each memory setting in order,
+remat 'save_convs' at grad_accum_samples 1, then 2, then remat 'full' at 2,
+with the peak memory (allocated and reserved) and step time of each, or
+the out-of-memory it met; the first whose peak allocated memory leaves
+TRAIN_HEADROOM_GB of the card free is the one chip_smoke.py's train phase
+uses. (The reserved peak adds the allocator's cached blocks, which it
+frees and retries before it reports an out-of-memory.) One step at that
+setting is profiled after a warm-up, with its device time by kernel family
+(GroupNorm forward and backward, convolution forward, dgrad and wgrad, the
+optimizer's foreach kernels, the rest).
+
+    python3 scripts/profile_torch_slice.py            # everything
+    python3 scripts/profile_torch_slice.py --train    # training only
+
+Chrome traces go to outs/profile_torch_slice/ (git-ignored).
 """
 
 from __future__ import annotations
@@ -39,8 +55,12 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (flagship config and constants)
 from brainfm_tpu_torch.infer import Inferencer, prepare_image  # noqa: E402
 from brainfm_tpu_torch.models import apply_processors, build_model  # noqa: E402
+from brainfm_tpu_torch.models.criterion import make_criterion  # noqa: E402
+from brainfm_tpu_torch.models.unet3d import DoubleConv, remat_mode  # noqa: E402
 from brainfm_tpu_torch.synth import (SubjectBank, SynthStatic,  # noqa: E402
                                      knobs_from_cfg, synth_item)
+from brainfm_tpu_torch.train import (TrainState, build_optimizer,  # noqa: E402
+                                     make_batch, make_train_step)
 from brainfm_tpu_torch.utils.nifti import save_nifti  # noqa: E402
 
 # kernel names of brainfm_tpu_torch/csrc
@@ -56,7 +76,36 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def breakdown(name, fn, out_dir, unprofiled_wall_ms=None):
+# device-time families of a train step, by kernel name (first match)
+FAMILIES = (("groupnorm_fwd", ("RowwiseMoments", "ComputeFusedParams")),
+            ("groupnorm_bwd", ("ComputeInternalGradients",
+                               "ComputeBackwardFusedParams", "GammaBeta",
+                               "GroupNormBackward")),
+            ("conv_dgrad", ("dgrad",)),
+            ("conv_wgrad", ("wgrad",)),
+            ("conv_fwd", ("fprop", "conv", "xmma", "implicit_gemm")),
+            ("optimizer", ("multi_tensor_apply", "foreach", "Adam")),
+            ("own_kernels", OWN),
+            # index_select's backward (the decoders' nearest upsample)
+            ("index_add", ("indexFunc",)),
+            ("layout", ("nchwToNhwc", "nhwcToNchw")),
+            ("copy_cast", ("copy_kernel",)),
+            ("elementwise", ("elementwise_kernel", "reduce_kernel")))
+TRAIN_HEADROOM_GB = 8.0
+TRAIN_SETTINGS = (("save_convs", 1), ("save_convs", 2), ("full", 2))
+
+
+def families(kern) -> dict:
+    """Summed device ms per FAMILIES entry, the rest under 'other'."""
+    out = {}
+    for k, (us, _) in kern.items():
+        fam = next((f for f, keys in FAMILIES
+                    if any(key in k for key in keys)), "other")
+        out[fam] = out.get(fam, 0.0) + us / 1e3
+    return out
+
+
+def breakdown(name, fn, out_dir, unprofiled_wall_ms=None, top=TOP):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -74,7 +123,7 @@ def breakdown(name, fn, out_dir, unprofiled_wall_ms=None):
     busy_ms = sum(us for us, _ in kern.values()) / 1e3
     own_ms = sum(us for k, (us, _) in kern.items()
                  if any(o in k for o in OWN)) / 1e3
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:top]
     rec = {"phase": f"profile_{name}", "wall_ms": wall_ms,
            "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / wall_ms) if wall_ms > 0 else None,
@@ -82,6 +131,7 @@ def breakdown(name, fn, out_dir, unprofiled_wall_ms=None):
            "unprofiled_wall_ms": unprofiled_wall_ms,
            "idle_share_unprofiled": (None if unprofiled_wall_ms is None
                                      else 1 - busy_ms / unprofiled_wall_ms),
+           "families_ms": families(kern),
            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n}
                    for k, (us, n) in top]}
     print(json.dumps(rec), flush=True)
@@ -96,6 +146,10 @@ def main():
     out_dir = os.path.join(ROOT, "outs", "profile_torch_slice")
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda")
+    print(chip_smoke.gpu_name_power(), flush=True)
+    if "--train" in sys.argv[1:]:
+        profile_train(dev, out_dir)
+        return 0
     cfg = chip_smoke.flagship_cfg()
     torch.manual_seed(0)
     cfg, model = build_model(cfg, device=dev)
@@ -119,11 +173,95 @@ def main():
 
     item()
     forward()
-    print(chip_smoke.gpu_name_power(), flush=True)
     breakdown("item", item, out_dir)
     breakdown("forward", forward, out_dir)
     profile_serve(cfg, model.state_dict(), dev, out_dir)
+    del model, held
+    profile_train(dev, out_dir)
     return 0
+
+
+def _set_remat(model, remat):
+    for m in model.modules():
+        if isinstance(m, DoubleConv):
+            m.remat = remat_mode(remat)
+
+
+def fit_train(cfg, model, weight_dict, loss_fn, batch, dev):
+    """One warm and one measured train step under each TRAIN_SETTINGS
+    entry (optimizer state made by the first step, so the measured one
+    holds it all); prints a line each and returns the first setting whose
+    peak allocated memory leaves TRAIN_HEADROOM_GB of the card free."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    chosen = None
+    for remat, accum in TRAIN_SETTINGS:
+        _set_remat(model, remat)
+        torch.cuda.empty_cache()
+        state = TrainState(model, build_optimizer(cfg, model.parameters()))
+        step = make_train_step(model, cfg, weight_dict, loss_fn,
+                               state.optimizer, sample_accum=accum)
+        rec = {"phase": "fit_train", "remat": remat,
+               "grad_accum_samples": accum}
+        try:
+            state, _ = step(state, batch, 1e-4, 0.0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, 1e-4, 0.0)
+            torch.cuda.synchronize()
+            rec.update(step_ms=(time.perf_counter() - t0) * 1e3,
+                       loss_total=float(m["loss_total"]),
+                       peak_allocated_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30,
+                       peak_reserved_gib=torch.cuda.max_memory_reserved()
+                       / 2 ** 30,
+                       free_gb=(total - torch.cuda.max_memory_allocated())
+                       / 1e9)
+        except torch.cuda.OutOfMemoryError as e:
+            rec["oom"] = str(e).splitlines()[0][:200]
+        del state, step
+        torch.cuda.empty_cache()
+        rec["fits"] = rec.get("free_gb", 0.0) >= TRAIN_HEADROOM_GB
+        print(json.dumps(rec), flush=True)
+        if rec["fits"] and chosen is None:
+            chosen = (remat, accum)
+    return chosen
+
+
+def profile_train(dev, out_dir):
+    """fit_train, then one profiled step at the chosen setting."""
+    cfg = chip_smoke.flagship_cfg()
+    torch.manual_seed(0)
+    cfg, model = build_model(cfg, device=dev)
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    scfg = SynthStatic.from_cfg(cfg)
+    bank = SubjectBank(chip_smoke.BANK)
+    bank.add_debug_subject(seed=0)
+    batch = make_batch([torch.Generator(dev).manual_seed(1)],
+                       bank.to_device(0, dev), scfg, cfg.tasks, "synth",
+                       knobs_from_cfg(cfg, scfg, "synth"))
+    chosen = fit_train(cfg, model, weight_dict, loss_fn, batch, dev)
+    if chosen is None:
+        raise RuntimeError("no memory setting fits the flagship train step")
+    remat, accum = chosen
+    _set_remat(model, remat)
+    held = {"state": TrainState(model, build_optimizer(cfg,
+                                                       model.parameters()))}
+    step = make_train_step(model, cfg, weight_dict, loss_fn,
+                           held["state"].optimizer, sample_accum=accum)
+
+    def train_step():
+        held["state"], _ = step(held["state"], batch, 1e-4, 0.0)
+
+    train_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step()
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "train_setting", "remat": remat,
+                      "grad_accum_samples": accum}), flush=True)
+    breakdown("train_step", train_step, out_dir,
+              unprofiled_wall_ms=(time.perf_counter() - t0) * 1e3, top=25)
 
 
 def profile_serve(cfg, state, dev, out_dir):
