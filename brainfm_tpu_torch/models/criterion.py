@@ -23,6 +23,10 @@ from .losses import (gaussian_loss, gradient_loss, hessian_loss, l1_loss,
 
 _SPATIAL = (1, 2, 3)  # reduce dims for (S, D, H, W, C) per-sample dice sums
 _IMAGES = ("T1", "T2", "FLAIR", "CT")
+# losses of one target each, left out for a subject without that target
+_TARGET_OF = {"seg_ce": "segmentation", "seg_dice": "segmentation",
+              "distance": "distance", "registration": "registration",
+              "registration_grad": "registration"}
 
 
 def _seg_weights(n_labels: int, label_list_with_csf, relative_weight_lesions: float):
@@ -126,6 +130,11 @@ def make_criterion(cfg) -> tuple[list, dict, Callable]:
                   if torch.is_tensor(v) and v.dim() >= 1), None)
         losses = {}
         for name in loss_names:
+            if name in _TARGET_OF and _TARGET_OF[name] not in targets:
+                # a subject without this target (the dataset layout's
+                # subjects carry no distance or registration maps): the
+                # loss is left out, as for an absent image target
+                continue
             if name in _IMAGES:
                 if name not in outputs or name not in targets:
                     continue

@@ -3,8 +3,9 @@ brainfm_tpu/synth/deform.py).
 
 The low-res field lives in a buffer of static maximal shape with an
 effective size held in a tensor, and the grid addresses the whole subject
-volume, as in the JAX package. `integrate_svf` (the surface task's inverse
-field) is not ported yet.
+volume, as in the JAX package. `integrate_svf` composes the field with
+itself through K1 (ops/warp.py::warp_volume) on the card and through its
+plain version, ops/interp.py::trilinear3d, on the CPU.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 import torch
 
 from ..ops.separable import apply_axis_matrix, linear_resample_matrix
+from ..ops.warp import warp_volume
 from .draws import Draws
 
 
@@ -89,10 +91,8 @@ def small_field_buffer_shape(cfg, photo_possible: bool | None = None):
 
 def random_nonlinear_field(draws: Draws, cfg, setup,
                            need_inverse: bool = False):
-    """Low-res gaussian SVF upsampled to `cfg.size`. Returns (F, None)."""
-    if need_inverse:
-        raise NotImplementedError("integrate_svf (surface task) is not "
-                                  "ported yet")
+    """Low-res gaussian SVF upsampled to `cfg.size`. Returns (F, None), or
+    with need_inverse the integrated field and its inverse (F, Fneg)."""
     dev = draws.device
     nonlin_scale = (cfg.nonlin_scale_min + draws.uniform("scale_u")
                     * (cfg.nonlin_scale_max - cfg.nonlin_scale_min))
@@ -109,7 +109,31 @@ def random_nonlinear_field(draws: Draws, cfg, setup,
     F = zoom_from_effective(fsmall, eff, cfg.size)
     if photo > 0:
         F[..., 1] = 0.0
+    if need_inverse:
+        return integrate_svf(F, cfg.n_steps_svf_integration)
     return F, None
+
+
+def integrate_svf(F, n_steps: int):
+    """Scaling and squaring of the stationary velocity field F (D,H,W,3)
+    and of its negative: (exp(F), exp(-F)) as displacement fields."""
+    size = F.shape[:3]
+    xx, yy, zz = torch.meshgrid(
+        *[torch.arange(s, dtype=F.dtype, device=F.device) for s in size],
+        indexing="ij")
+
+    def compose(f):
+        grid = [(xx + f[..., 0]).contiguous(), (yy + f[..., 1]).contiguous(),
+                (zz + f[..., 2]).contiguous()]
+        return f + warp_volume(f.contiguous(), grid)
+
+    step = 1.0 / (2.0 ** n_steps)
+    fsvf = F * step
+    fneg = -F * step
+    for _ in range(n_steps):
+        fsvf = compose(fsvf)
+        fneg = compose(fneg)
+    return fsvf, fneg
 
 
 def deform_grid(cfg, shp, A, c2, F=None):

@@ -8,13 +8,17 @@ in the subject frame (padded to the bank shape, true extent in
 subject['shape']); targets and samples are made at cfg.size, channels-last,
 samples stacked on a leading S axis.
 
-Ported: synth and real input modes without pathology, the label path with
-deform_one_hots off. The pathology and surface tasks and the one-hot warp
-are not ported yet and raise.
+Every path of the JAX engine is ported: synth and real input modes, the
+label path with deform_one_hots on (K1 linear on the one-hot) or off (K2,
+K1 nearest, K2), the pathology task (a random Perlin shape or a lesion
+file warped by K1, advected, encoded into each sample) and the surface
+task's deformation state. The SubjectBank reads subject files through the
+port's codec (runtime/loader.py).
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from functools import lru_cache
 from typing import Sequence
@@ -32,6 +36,8 @@ from .deform import deform_grid, random_affine, random_nonlinear_field
 from .draws import Draws
 from .gmm import sample_contrast_lut
 from .params import SynthStatic, sample_setup
+from .pathology import (augment_pathology, binarize, encode_pathology,
+                        pathology_direction, random_shape)
 
 
 def _flip0(x, flip):
@@ -70,13 +76,17 @@ def _target_segmentation(seg, grid, flip, lut, vflip, hemis_mask=None,
     """One-hot segmentation target. The LUT commutes with the nearest warp,
     so the raw labels are compacted first (K2), the compact index volume is
     warped (K1 nearest), and the sagittal flip is applied in label space
-    (K2 on vflip) before the one-hot."""
-    if deform_one_hots:
-        raise NotImplementedError("deform_one_hots is not ported yet")
+    (K2 on vflip) before the one-hot. deform_one_hots: the one-hot of the
+    compacted labels (56 channels, 18 left-only) is warped by K1 linear
+    instead, then flipped with the vflip channel permutation."""
     s = seg.int()
     if hemis_mask is not None:
         s = torch.where(hemis_mask == 0, 0, s)
     sc = lut_apply(lut, s.clamp(0, lut.shape[0] - 1))
+    if deform_one_hots:
+        onehot = _one_hot(sc, int(vflip.shape[0]))
+        sd = warp_volume(onehot, grid)
+        return torch.flip(sd, (0,))[..., vflip.long()] if flip > 0 else sd
     scd = warp_labels(sc, grid)
     # flip(onehot(l))[..., vflip] == onehot(vflip[flip(l)]): vflip is the
     # half-swap involution
@@ -84,12 +94,64 @@ def _target_segmentation(seg, grid, flip, lut, vflip, hemis_mask=None,
     return _one_hot(lab, int(vflip.shape[0]))
 
 
+class _Clock:
+    """Phase times into `stats` (no-op without stats)."""
+
+    def __init__(self, dev, stats):
+        self.dev, self.stats = dev, stats
+        self.t0 = time.perf_counter()
+
+    def lap(self, key):
+        if self.stats is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        t = time.perf_counter()
+        self.stats[key] = self.stats.get(key, 0.0) + (t - self.t0) * 1e3
+        self.t0 = t
+
+
+def _target_pathology(draws: Draws, subject, grid, setup, cfg, stats=None):
+    """(P, Pprob), each (*size, 1): with pathol_mode on, a random Perlin
+    shape (pathol_random_shape, or no lesion file) or the subject's lesion
+    probability warped by K1, advected when cfg.augment_pathology, then
+    binarized; both zero when pathol_mode is off or the shape is below
+    cfg.pathol_tol. `stats` receives the advection's counts and phase
+    times (ms on the host clock, synchronized on the card)."""
+    size = tuple(grid[0].shape)
+    dev = grid[0].device
+    on = bool(setup["pathol_mode"] > 0)
+    if on:
+        clock = _Clock(dev, stats)
+        use_random = (bool(setup["pathol_random_shape"] > 0)
+                      or "pathol_prob" not in subject)
+        if use_random:
+            pdef, _ = random_shape(draws.sub("shape"), size, cfg)
+            clock.lap("shape_ms")
+        else:
+            pdef = warp_volume(torch.nan_to_num(
+                subject["pathol_prob"]).contiguous(), grid)
+            clock.lap("lesion_warp_ms")
+        if cfg.augment_pathology:
+            pdef = augment_pathology(draws.sub("augment"), pdef, cfg,
+                                     stats=stats)
+            clock.lap("advect_ms")
+    else:
+        pdef = torch.zeros(size, device=dev)
+    p = binarize(pdef, cfg.pathol_thres)
+    alive = on and bool(torch.mean(p) > cfg.pathol_tol)
+    if not alive:
+        p, pdef = torch.zeros_like(p), torch.zeros_like(pdef)
+    return p[..., None], pdef[..., None]
+
+
 def make_targets(subject, grid, setup, sfd, cfg, tasks, extra=None,
-                 hemis_mask=None):
+                 hemis_mask=None, draws=None, stats=None):
     """Deform every requested target. All trilinear targets, plus `extra`
-    channels (the synthetic contrasts), are stacked channel-wise into ONE
-    fused warp with per-channel out-of-bounds defaults (K1). Returns
-    (target dict, warped extra channels or None)."""
+    channels (the synthetic contrasts and, with pathology, their masked
+    copies), are stacked channel-wise into ONE fused warp with per-channel
+    out-of-bounds defaults (K1). `draws`: the pathology target's draws.
+    Returns (target dict, warped extra channels or None)."""
     flip = setup["flip"]
     left = cfg.left_hemis_only
     dev = grid[0].device
@@ -195,16 +257,28 @@ def make_targets(subject, grid, setup, sfd, cfg, tasks, extra=None,
             rx, ry, rz = (-torch.flip(rx, (0,)), torch.flip(ry, (0,)),
                           torch.flip(rz, (0,)))
         target["registration"] = torch.stack([rx, ry, rz], dim=-1)
+    if "pathology" in tasks:
+        p, pprob = _target_pathology(
+            draws if draws is not None else Draws(device=dev), subject,
+            grid, setup, cfg, stats)
+        target["pathology"] = p
+        target["pathology_prob"] = pprob
     if "age" in tasks and "age" in subject:
         target["age"] = subject["age"]
     return target, extra_warped
 
 
-def _finish_sample(draws: Draws, idef, cfg, setup, knobs, tasks,
-                   input_mode):
-    """Augmentation chain + restore + normalize + flip."""
+def _finish_sample(draws: Draws, idef, cfg, setup, knobs, tasks, target,
+                   pathol_direction, input_mode):
+    """Pathology encode + augmentation chain + restore + normalize + flip."""
     if input_mode == "CT":
         idef = idef.clamp(0.0, 80.0)
+    if "pathology" in tasks:
+        p = target["pathology"][..., 0]
+        pprob = target["pathology_prob"][..., 0]
+        enc = encode_pathology(draws.sub("encode"), idef, p, pprob,
+                               pathol_direction)
+        idef = torch.where(torch.sum(p) > 0, enc.clamp(min=0.0), idef)
     steps = cfg.aug_steps_synth if input_mode == "synth" \
         else cfg.aug_steps_real
     restored, aux = augment_chain(draws, idef, cfg, setup, knobs,
@@ -223,11 +297,16 @@ def _finish_sample(draws: Draws, idef, cfg, setup, knobs, tasks,
     return sample
 
 
-def _synth_volumes(draws: Draws, subject, cfg, setup, hemis_mask=None):
+def _synth_volumes(draws: Draws, subject, cfg, setup, tasks,
+                   hemis_mask=None):
     """All S synthetic contrasts in the subject frame, channel-stacked
     (D,H,W,S): they share the deformation grid, so they join the target
     channel stack and ride the one fused warp (make_targets `extra`).
-    One K2 lookup fetches all 2S (mu, sigma) columns."""
+    One K2 lookup fetches all 2S (mu, sigma) columns. With the pathology
+    task the S cerebral-masked copies that the keep masks need join too
+    (2S channels), and each contrast's pathology direction (grey brighter
+    than white matter) is returned. Returns (chans, pathol_dir (S,) or
+    None)."""
     S = cfg.all_samples
     gen = subject["gen"]
     luts = [sample_contrast_lut(draws.sub("contrast", i), cfg.ct_prob,
@@ -241,13 +320,24 @@ def _synth_volumes(draws: Draws, subject, cfg, setup, hemis_mask=None):
     gr = g.int().clamp(0, 255)
     noise = draws.normal("syn_noise", (*gr.shape, S))
     ms = lut_apply(torch.cat([mus, sigmas], dim=1).contiguous(), gr)
-    return (ms[..., :S] + ms[..., S:] * noise).clamp(min=0.0)
+    syn = (ms[..., :S] + ms[..., S:] * noise).clamp(min=0.0)
+    if "pathology" not in tasks:
+        return syn, None
+    wm = ((gr == 2) | (gr == 41))[..., None]
+    gm = (gr != 0)[..., None] & ~wm
+    wm_mean = torch.sum(syn * wm, dim=(0, 1, 2)) / wm.sum().clamp(min=1)
+    gm_mean = torch.sum(syn * gm, dim=(0, 1, 2)) / gm.sum().clamp(min=1)
+    pathol_dir = (gm_mean > wm_mean).float()
+    masked = torch.where((gr == 0)[..., None], 0.0, syn)
+    return torch.cat([syn, masked], dim=-1), pathol_dir
 
 
-def _synth_sample(draws: Draws, syn, subject, cfg, setup, knobs, tasks,
-                  target):
+def _synth_sample(draws: Draws, syn, keep, pathol_dir, subject, cfg, setup,
+                  knobs, tasks, target):
     """Per-sample tail of the synthetic contrast: random linear mix with
-    the real contrasts, then the augmentation chain."""
+    the real contrasts, the pathology keep mask (applied to the shared
+    target, so it accumulates over the samples, as in the JAX package),
+    then the pathology encode and the augmentation chain."""
     if cfg.mix_synth_prob > 0:
         mix = draws.uniform("mix_u") < cfg.mix_synth_prob
         v = draws.uniform("mix_v", (4,)).clone()
@@ -265,13 +355,17 @@ def _synth_sample(draws: Draws, syn, subject, cfg, setup, knobs, tasks,
                     mixed = mixed + v[i] * _flip0(target[t][..., 0],
                                                   setup["flip"])
             syn = mixed
+    if "pathology" in tasks:
+        target["pathology"] = target["pathology"] * keep
+        target["pathology_prob"] = target["pathology_prob"] * keep
     syn = syn.clamp(min=0.0)
-    return _finish_sample(draws, syn, cfg, setup, knobs, tasks, "synth")
+    return _finish_sample(draws, syn, cfg, setup, knobs, tasks, target,
+                          pathol_dir, "synth")
 
 
 def synth_item(generator, subject: dict, cfg: SynthStatic,
                tasks: Sequence[str], input_mode: str, knobs_stack,
-               draws=None, record=None):
+               draws=None, record=None, stats=None):
     """Generate one training item: (target dict, samples dict stacked on a
     leading S axis). `input_mode` in {'synth','T1','T2','FLAIR','CT'};
     knobs_stack leaves have leading dim cfg.all_samples.
@@ -279,33 +373,35 @@ def synth_item(generator, subject: dict, cfg: SynthStatic,
     generator: torch.Generator on the subject's device (None: PyTorch's
     default one). draws: optional nested dict of injected draws, by the
     names the random functions use; record: optional dict that receives
-    every draw made, so `draws=record` replays the item."""
+    every draw made, so `draws=record` replays the item. stats: optional
+    dict that receives the pathology target's phase times and advection
+    counts."""
     tasks = tuple(tasks)
-    for t in ("pathology", "surface"):
-        if t in tasks:
-            raise NotImplementedError(f"the {t} task is not ported yet")
     dev = subject["gen"].device
     d = Draws(generator, dev, draws, record)
     setup = sample_setup(d.sub("setup"), cfg)
     shp = subject["shape"]
     sfd, A, c2 = random_affine(d.sub("affine"), cfg, shp)
-    F = None
+    F = Fneg = None
     if cfg.nonlinear_transform:
-        F, _ = random_nonlinear_field(d.sub("field"), cfg, setup)
+        F, Fneg = random_nonlinear_field(d.sub("field"), cfg, setup,
+                                         need_inverse="surface" in tasks)
     grid = deform_grid(cfg, shp, A, c2, F)
 
     S = cfg.all_samples
     _, lut_np, _ = _label_tables(cfg.left_hemis_only)
     hemis_mask = _hemis_mask_src(subject, cfg,
                                  torch.from_numpy(lut_np).to(dev))
-    extra = None
+    extra = pathol_dir = None
     if input_mode == "synth":
-        extra = _synth_volumes(d.sub("synth"), subject, cfg, setup,
-                               hemis_mask)
+        extra, pathol_dir = _synth_volumes(d.sub("synth"), subject, cfg,
+                                           setup, tasks, hemis_mask)
 
     target, extra_warped = make_targets(subject, grid, setup, sfd, cfg,
                                         tasks, extra=extra,
-                                        hemis_mask=hemis_mask)
+                                        hemis_mask=hemis_mask,
+                                        draws=d.sub("pathology"),
+                                        stats=stats)
 
     if input_mode != "synth":
         # the real image is warped once: all S samples share the grid
@@ -319,17 +415,38 @@ def synth_item(generator, subject: dict, cfg: SynthStatic,
         knobs = {k: torch.as_tensor(a, dtype=torch.float32).to(dev)[i]
                  for k, a in knobs_stack.items()}
         if input_mode == "synth":
-            sample = _synth_sample(di, extra_warped[..., i], subject, cfg,
-                                   setup, knobs, tasks, target)
+            keep = ((extra_warped[..., S + i] != 0).float()[..., None]
+                    if "pathology" in tasks else None)
+            sample = _synth_sample(
+                di, extra_warped[..., i], keep,
+                None if pathol_dir is None else pathol_dir[i], subject, cfg,
+                setup, knobs, tasks, target)
         else:
-            sample = _finish_sample(di, idef_real, cfg, setup, knobs, tasks,
-                                    input_mode)
+            sample = _finish_sample(
+                di, idef_real, cfg, setup, knobs, tasks, target,
+                pathology_direction(di, input_mode)
+                if "pathology" in tasks else None, input_mode)
         samples.append(sample)
+
+    # the surface task's deformation state, for the mesh warp of
+    # synth/surface.py::deform_surfaces
+    if "surface" in tasks:
+        target["surface_svf_neg"] = Fneg if Fneg is not None else \
+            torch.zeros((*cfg.size, 3), device=dev)
+        target["surface_affine_A"] = A
+        target["surface_affine_c2"] = c2
+        target["surface_flip"] = setup["flip"]
 
     # drop mix-only contrasts (deformed for the blend, not requested)
     for t in ("T1", "T2", "FLAIR"):
         if t not in tasks:
             target.pop(t, None)
+
+    # the pathology targets are flipped last, after the keep masks
+    if "pathology" in target:
+        target["pathology"] = _flip0(target["pathology"], setup["flip"])
+        target["pathology_prob"] = _flip0(target["pathology_prob"],
+                                          setup["flip"])
 
     stacked = {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
     return target, stacked
@@ -386,9 +503,10 @@ def knobs_from_cfg(cfg_tree, scfg: SynthStatic, input_mode: str):
 
 
 class SubjectBank:
-    """Host-side subject store: subjects padded to one bank shape, shipped
-    to the device on demand. Procedural debug subjects let the whole
-    pipeline run without data. (Loading NIfTI files is not ported yet.)"""
+    """Host-side subject store: subjects decoded once (the port's native
+    codec, runtime/loader.py), padded to one bank shape, shipped to the
+    device on demand. Procedural debug subjects let the whole pipeline run
+    without data."""
 
     def __init__(self, bank_shape=(192, 192, 192)):
         self.bank_shape = tuple(bank_shape)
@@ -401,6 +519,109 @@ class SubjectBank:
         sl = tuple(slice(0, min(s, t)) for s, t in zip(vol.shape[:3], shape))
         out[sl] = vol[tuple(sl)]
         return out
+
+    def add_many(self, subject_paths, ages=None):
+        """Batch ingest: every volume of every subject decoded in one
+        parallel codec pass, then the subjects assembled. The same bits as
+        repeated `add_from_files`.
+
+        subject_paths: list of dicts like add_from_files' `paths`; ages:
+        optional list aligned with subject_paths. Returns the new subject
+        indices."""
+        from ..runtime.loader import VolCodec
+
+        jobs = []  # (subject_idx, key, channel_idx|None, path)
+        for si, paths in enumerate(subject_paths):
+            for key, p in paths.items():
+                if key in ("dist", "reg"):
+                    jobs.extend((si, key, ci, str(q))
+                                for ci, q in enumerate(p))
+                else:
+                    jobs.append((si, key, None, str(p)))
+        arena, shapes, extras = VolCodec(
+            self.bank_shape).decode_batch_with_shapes([j[3] for j in jobs])
+
+        built = [dict() for _ in subject_paths]
+        shape_of = [None] * len(subject_paths)
+        for row, (si, key, ci, path) in enumerate(jobs):
+            shp = shapes[row]
+            if shape_of[si] is None:
+                shape_of[si] = shp
+            elif tuple(shp) != tuple(shape_of[si]):
+                raise ValueError(
+                    f"subject volumes disagree on shape: {key} is {shp}, "
+                    f"expected {shape_of[si]}; all of a subject's volumes "
+                    "must share one native grid")
+            if row in extras:  # frames beyond 3-D are kept
+                vol = self._pad(extras[row], self.bank_shape)
+            else:
+                vol = arena[row]
+            if key in ("gen", "seg"):
+                vol = vol.astype(np.int32)
+            elif ci is None and row not in extras:
+                # copy the row out of the decode arena: a view would pin
+                # the whole (n_jobs, *bank_shape) arena for the bank's
+                # life; dist/reg channels are copied by np.stack below
+                vol = vol.copy()
+            if ci is None:
+                built[si][key] = vol
+            else:
+                built[si].setdefault(key, {})[ci] = vol
+        out = []
+        for si, (b, paths) in enumerate(zip(built, subject_paths)):
+            subj = {}
+            for key in paths:  # add_from_files' key order
+                v = b[key]
+                subj[key] = (np.stack([v[c] for c in sorted(v)], axis=-1)
+                             if key in ("dist", "reg") else v)
+            subj["shape"] = self._extent(shape_of[si])
+            age = ages[si] if ages is not None else None
+            if age is not None:
+                subj["age"] = np.float32(age)
+            self.subjects.append(subj)
+            out.append(len(self.subjects) - 1)
+        return out
+
+    def add_from_files(self, paths: dict, age=None):
+        """One subject from its files, read by the Python reader: paths
+        {'gen': ..., 'seg': ..., 'T1': ..., 'dist': [4 paths], 'reg': [3
+        paths], ...}."""
+        from ..utils.nifti import load_nifti
+
+        subj = {}
+        shape = None
+        for key, p in paths.items():
+            if key in ("dist", "reg"):
+                chans = [load_nifti(q)[0] for q in p]
+                vol = np.stack(chans, axis=-1).astype(np.float32)
+            else:
+                vol, _ = load_nifti(p)
+                vol = vol.astype(np.int32 if key in ("gen", "seg")
+                                 else np.float32)
+                # trailing singleton frames are a 3-D volume, as the codec
+                # of add_many reads them
+                while vol.ndim > 3 and vol.shape[-1] == 1:
+                    vol = vol[..., 0]
+            if shape is None:
+                shape = vol.shape[:3]
+            elif tuple(vol.shape[:3]) != tuple(shape):
+                raise ValueError(
+                    f"subject volumes disagree on shape: {key} is "
+                    f"{vol.shape[:3]}, expected {shape}; all of a subject's "
+                    "volumes must share one native grid")
+            subj[key] = self._pad(vol, self.bank_shape)
+        subj["shape"] = self._extent(shape)
+        if age is not None:
+            subj["age"] = np.float32(age)
+        self.subjects.append(subj)
+        return len(self.subjects) - 1
+
+    def _extent(self, shape):
+        """The extent the bank stores: a volume larger than bank_shape is
+        cropped by _pad, so the native extent is clamped to it (else
+        deform_grid would sample the zero padding)."""
+        return np.asarray([min(s, b) for s, b in zip(shape, self.bank_shape)],
+                          np.float32)
 
     def add_debug_subject(self, seed=0, extent=(160, 160, 160)):
         """Procedural label-blob subject for tests and benchmarks (the same
@@ -430,8 +651,7 @@ class SubjectBank:
             "image": self._pad(t1, self.bank_shape),
             "dist": self._pad(dist, self.bank_shape),
             "reg": self._pad(reg, self.bank_shape),
-            "shape": np.asarray([min(s, b) for s, b in
-                                 zip(extent, self.bank_shape)], np.float32),
+            "shape": self._extent(extent),
             "age": np.float32(rng.uniform(20.0, 90.0)),
         }
         self.subjects.append(subj)

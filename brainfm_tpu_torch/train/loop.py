@@ -1,18 +1,18 @@
-"""The training loop (port of brainfm_tpu/train/loop.py, the subject-bank
-path).
+"""The training loop (port of brainfm_tpu/train/loop.py).
 
 Per-iteration schedule lookup, per-step metrics with an epoch nanmean,
 fixed-seed validation with best-checkpoint handling, the rolling epoch
 checkpoint and the loss curve. Every item is synthesized on the model's
 device by `synth_item`, so K1 (ops/warp.py) and K2 (ops/lut.py) run in
-every iteration. Randomness is drawn per epoch from (seed, epoch): a torch
-generator for the items and a numpy generator for the host draws, both
-made anew each epoch, so a run resumed at an epoch boundary draws what an
-uninterrupted one draws.
+every iteration. Items come from a subject bank or from the
+multi-dataset stream (synth/datasets.py::ConcatStream). Randomness is
+drawn per epoch from (seed, epoch): a torch generator for the bank's items
+(the stream's: one per item, from (seed, epoch, item)) and numpy generators
+for the host draws, all made anew each epoch, so a run resumed at an epoch
+boundary draws what an uninterrupted one draws.
 
-Not ported here: the multi-dataset stream, the multi-GPU mesh and FSDP,
-two-stage training and the periodic visualizer; each raises
-NotImplementedError.
+Not ported here: the multi-GPU mesh and FSDP, two-stage training and the
+periodic visualizer; each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from ..models.build import build_critic_from_cfg
 from ..models.criterion import weighted_total
 from ..synth import SynthStatic, knobs_from_cfg, synth_item
 from ..synth.batch import stack_items
+from ..synth.datasets import item_generator
 from ..synth.sampler import WeightedSubjectSampler, choose_modality
 from ..utils.logging import plot_loss, setup_logging, write_log_line
 from .checkpoint import (finalize_pending, load_checkpoint, read_extra,
@@ -132,10 +133,59 @@ def make_val_set(bank, scfg, tasks, input_modes, knobs, seed: int,
     return batches
 
 
+# the sampler epoch of the stream's validation set, far outside any
+# training epoch
+VAL_EPOCH = 1_000_000_007
+
+
+def make_val_set_stream(stream, seed: int, n_items: int = 2,
+                        batch_items: int = 1, stage_host: bool = False):
+    """Fixed-seed validation batches drawn across the stream's datasets
+    with the training mixture's probabilities, the same across epochs and
+    resumes: the sampler and every dataset's roulette are set to the epoch
+    VAL_EPOCH + seed, and the items draw from generators of (100_000 +
+    seed, VAL_EPOCH, item). Returns (batches, dataset_names)."""
+    stream.sampler.set_epoch(VAL_EPOCH + seed)
+    for n in stream.names:
+        stream.datasets[n].reseed(VAL_EPOCH + seed)
+    plan = stream.sampler.sample_grouped(n_items, batch_items)
+    batches, item = [], 0
+    for d, idxs in plan:
+        ds = stream.datasets[stream.names[d]]
+        items = []
+        for i in idxs:
+            items.append(ds.get(i, item_generator(100_000 + seed, VAL_EPOCH,
+                                                  item, ds.device)))
+            item += 1
+        b = stack_items([t for t, _ in items], [s for _, s in items])
+        batches.append(_to(b, "cpu") if stage_host else b)
+    return batches, [stream.names[d] for d, _ in plan]
+
+
 def epoch_generator(dev, seed: int, epoch: int) -> torch.Generator:
     """The item generator of one epoch, seeded from (seed, epoch) only."""
     s = np.random.SeedSequence((seed + 1, epoch)).generate_state(1, np.uint64)
     return torch.Generator(dev).manual_seed(int(s[0] >> np.uint64(1)))
+
+
+def _bank_batch(bank, idx, dev, stage_host, input_prob, rng_host,
+                input_modes, knobs, cfg, scfg, tasks, gen, batch_items):
+    """One train batch from bank subject `idx`: its modality drawn from
+    `input_prob` (or `input_modes`), then `batch_items` items. A staged
+    subject is freed before the caller's step."""
+    subj = bank.stage(idx, dev) if stage_host else bank.to_device(idx, dev)
+    if input_prob:
+        avail = set(bank.subjects[idx].keys())
+        mode = choose_modality(rng_host, input_prob, avail)
+        if mode != "synth" and mode in subj:
+            subj = dict(subj)
+            subj["image"] = subj[mode]
+        if mode not in knobs:
+            knobs[mode] = knobs_from_cfg(cfg, scfg, mode)
+    else:
+        mode = input_modes[rng_host.integers(len(input_modes))]
+    return make_batch([gen] * batch_items, subj, scfg, tasks, mode,
+                      knobs[mode])
 
 
 def _refuse(what, why):
@@ -153,15 +203,18 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     """Run the training loop on the model's device. `bank`: SubjectBank;
     `cfg`: the processed trainer config (with .generator etc.).
 
+    `stream`: a synth/datasets.py ConcatStream (the multi-dataset
+    registry: per-dataset banks, modality roulettes and probability
+    mixing), in place of the bank's subject sampling; `bank` may then be
+    None, and validation draws across the stream's datasets
+    (make_val_set_stream).
+
     Every `val_itr` epochs the fixed-seed val set is scored; a new best
     val loss_total saves ckp/ckpt_best (the previous best renamed to
     ckpt_best_bk). `keep_ckpt` bounds the rolling epoch checkpoints
     (ckp/ckpt_{step}), saved on a background thread. Writes log.txt (one
     JSON line per epoch), train.log and the loss curve. Returns the
     TrainState."""
-    if stream is not None:
-        _refuse("stream= (the multi-dataset registry)",
-                "ROADMAP Queue 1 item 4, synth/datasets.py")
     if mesh is not None or fsdp:
         _refuse("mesh= / fsdp=True", "the multi-GPU slice, Queue 1 item 6")
     if twostage_models is not None:
@@ -204,9 +257,11 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     step_fn = make_train_step(model, cfg, weight_dict, loss_fn, optimizer,
                               sample_accum=sample_accum)
     knobs = {m: knobs_from_cfg(cfg, scfg, m) for m in set(input_modes)}
-    sampler = WeightedSubjectSampler([len(bank)], seed=seed)
+    sampler = (WeightedSubjectSampler([len(bank)], seed=seed)
+               if stream is None else None)
     input_prob = dict(cfg.get("input_prob") or {})
-    if not input_prob and tuple(input_modes) == ("synth",):
+    if stream is None and not input_prob \
+            and tuple(input_modes) == ("synth",):
         logger.info("input modes: synth only (no input_prob/modality table "
                     "configured)")
 
@@ -219,26 +274,23 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
         rng_host = np.random.default_rng((seed, epoch))
         metric_hist: list = []
         t_ep = time.time()
-        sampler.set_epoch(epoch)
-        subj_plan = sampler.sample(itr_per_epoch)
+        if stream is not None:
+            item_iter = stream.epoch(epoch, itr_per_epoch * batch_items,
+                                     seed)
+        else:
+            sampler.set_epoch(epoch)
+            subj_plan = sampler.sample(itr_per_epoch)
         for it in range(itr_per_epoch):
             gstep = epoch * itr_per_epoch + it
-            idx = subj_plan[it][1]
-            subj = bank.stage(idx, dev) if stage_host \
-                else bank.to_device(idx, dev)
-            if input_prob:
-                avail = set(bank.subjects[idx].keys())
-                mode = choose_modality(rng_host, input_prob, avail)
-                if mode != "synth" and mode in subj:
-                    subj = dict(subj)
-                    subj["image"] = subj[mode]
-                if mode not in knobs:
-                    knobs[mode] = knobs_from_cfg(cfg, scfg, mode)
+            if stream is not None:
+                items = [next(item_iter) for _ in range(batch_items)]
+                batch = _to(stack_items([t for _, t, _ in items],
+                                        [s for _, _, s in items]), dev)
+                del items
             else:
-                mode = input_modes[rng_host.integers(len(input_modes))]
-            batch = make_batch([gen] * batch_items, subj, scfg, tasks, mode,
-                               knobs[mode])
-            subj = None   # a staged subject is freed before the step
+                batch = _bank_batch(bank, subj_plan[it][1], dev, stage_host,
+                                    input_prob, rng_host, input_modes, knobs,
+                                    cfg, scfg, tasks, gen, batch_items)
             batch = apply_condition(batch, cfg.get("condition"))
             lr = float(lr_sched[min(gstep, len(lr_sched) - 1)])
             wd = float(wd_sched[min(gstep, len(wd_sched) - 1)])
@@ -258,11 +310,19 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
 
         if val_itr and (epoch + 1) % val_itr == 0:
             if val_batches is None:
+                if stream is not None:
+                    val_batches, val_names = make_val_set_stream(
+                        stream, seed, n_val_items, batch_items,
+                        stage_host=stage_host)
+                    logger.info("val set spans datasets: "
+                                f"{sorted(set(val_names))}")
+                else:
+                    val_batches = make_val_set(
+                        bank, scfg, tasks, input_modes, knobs, seed,
+                        n_val_items, batch_items, stage_host=stage_host,
+                        device=dev)
                 val_batches = [apply_condition(b, cfg.get("condition"))
-                               for b in make_val_set(
-                                   bank, scfg, tasks, input_modes, knobs,
-                                   seed, n_val_items, batch_items,
-                                   stage_host=stage_host, device=dev)]
+                               for b in val_batches]
                 eval_step = make_eval_step(model, cfg, weight_dict, loss_fn,
                                            sample_accum=sample_accum)
             acc: dict = {}

@@ -39,16 +39,37 @@ Phases, one JSON line each:
                checkpoints, then TRAIN_TIMED timed iterations (item, step);
                every step's loss and skip flag, peak memory, launch counts
                over the phase.
+  9. stream_reference - procedural subject files (write_subject_root) read
+               through the codec into the datasets of synth/datasets.py on
+               the GPU and on the CPU; one item per dataset with
+               deform_one_hots, pathology forced on from the lesion pool
+               and the surface task's inverse field, made on the GPU and
+               replayed on the CPU from its recorded draws, compared; a
+               small model on both.
+ 10. stream  - the training CLI (scripts/train.py::main) with the flagship
+               configs on a data root of two datasets at 180^3 (HCP: T1,
+               T2; ATLAS: T1 and a lesion pool): one epoch of STREAM_ITR
+               iterations on the dataset stream, then --eval_only --resume
+               on its checkpoint, then TRAIN_TIMED timed stream iterations
+               (item, step); ingest seconds, peak memory, launch counts.
+ 11. pathology - items of the shape_id generator (160^3, dopri5,
+               augment_pathology) with pathology forced on, from random
+               shapes and from a lesion file, timed by part (shape or
+               lesion warp, advection with its adaptive steps, the rest);
+               then the flagship model trains a step on each.
 Then the elapsed seconds per phase, the `kernels` summary line (launches on
-the slice, serve and train paths), the card's name and power limit, and the
-result line. Exits non-zero, printing no result, when a phase fails or no
-GPU is present.
+the slice, serve, train, stream and pathology paths), the card's name and
+power limit, and the result line. Exits non-zero, printing no result, when
+a phase fails or no GPU is present.
 """
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import copy
 import gzip
+import io
 import json
 import os
 import re
@@ -64,7 +85,6 @@ import torch
 import torch.nn.functional as F
 
 from brainfm_tpu_torch import kernels
-from brainfm_tpu_torch.config import load_config, merge_missing
 from brainfm_tpu_torch.infer import (Inferencer, get_deformed_atlas,
                                      prepare_image, tile_plan)
 from brainfm_tpu_torch.models import (apply_processors, build_model,
@@ -78,6 +98,9 @@ from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
                                      knobs_from_cfg, random_affine,
                                      random_nonlinear_field, sample_setup,
                                      synth_item)
+from brainfm_tpu_torch.scripts import train as train_script
+from brainfm_tpu_torch.synth.batch import stack_items
+from brainfm_tpu_torch.synth.datasets import DATASET_SETUPS, build_datasets
 from brainfm_tpu_torch.train import (build_optimizer, build_schedules,
                                      load_checkpoint, make_batch,
                                      make_train_step, save_checkpoint, train)
@@ -127,6 +150,12 @@ TRAIN_ACCUM = 1
 LOSS_TOL = 1e-4
 GRAD_TOL = 1e-3
 FP32_GRAD_FACTOR = 4.0
+# the stream phases: procedural subjects of this extent in the data root,
+# and the CLI's iterations; the pathology phase's items (random shape,
+# lesion file, alternately)
+STREAM_EXTENT = (180, 180, 180)
+STREAM_ITR = 4
+PATHOLOGY_ITEMS = 4
 
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
@@ -185,13 +214,7 @@ def time_ms(fn, reps=20, warmup=3, cold=False) -> float:
 
 
 def flagship_cfg():
-    gen = load_config([os.path.join(ROOT, "cfgs/generator/default.yaml"),
-                       "brain_id"],
-                      cfg_dir=os.path.join(ROOT, "cfgs/generator/train"))
-    tr = load_config([os.path.join(ROOT, "cfgs/trainer/default_train.yaml"),
-                      "joint"],
-                     cfg_dir=os.path.join(ROOT, "cfgs/trainer/train"))
-    return merge_missing(tr, gen)
+    return train_script.train_config("brain_id", "joint")
 
 
 def small_model_cfg():
@@ -356,6 +379,35 @@ def kernel_cases(scfg, dev) -> list:
             grid_sample_yardstick(src, egrid, "bilinear", dflt),
             linear_bytes(BANK, egrid, C), exact=False))
 
+    # the stream and pathology paths: the target wall with the pathology
+    # keep channels (12 + S = 16 at S=4), the lesion file (C=1, a lesion
+    # probability), the one-hot segmentation of deform_one_hots (C=56) and
+    # the SVF's self-composition of the surface task (C=3, cfg.size into
+    # cfg.size at the identity grid plus the field)
+    src16 = torch.randn(BANK + (16,), generator=g, device=dev)
+    d16 = torch.randn(16, generator=g, device=dev)
+    lesion = torch.from_numpy(lesion_blob(BANK, 0)).to(dev)
+    onehot = F.one_hot(torch.randint(0, 56, BANK, generator=g, device=dev),
+                       56).float()
+    size = tuple(scfg.size)
+    svf = torch.randn(size + (3,), generator=g, device=dev) * (4.0 / 256)
+    ax = torch.meshgrid(*[torch.arange(n, dtype=torch.float32, device=dev)
+                          for n in size], indexing="ij")
+    sgrid = [(ax[a] + svf[..., a]).contiguous() for a in range(3)]
+    zero = torch.zeros((), device=dev)
+    for name, src, sg, shape, dflt in (
+            ("C=16 wall", src16, egrid, BANK, d16),
+            ("C=1 lesion", lesion, egrid, BANK, zero),
+            ("C=56 one-hot", onehot, egrid, BANK, zero),
+            ("C=3 svf", svf, sgrid, size, zero)):
+        C = 1 if src.dim() == 3 else src.shape[-1]
+        cases.append(Case(
+            f"warp_linear_f32 {name}", "warp_linear_f32",
+            lambda s=src, gr=sg, d=dflt: warp_volume(s, gr, default=d),
+            lambda s=src, gr=sg, d=dflt: trilinear3d(s, *gr, d),
+            grid_sample_yardstick(src, sg, "bilinear", dflt),
+            linear_bytes(shape, sg, C), exact=False))
+
     # K1 nearest: compact labels, with .5 ties
     labels = torch.randint(0, 56, BANK, generator=g, device=dev,
                            dtype=torch.int32)
@@ -404,7 +456,6 @@ def kernel_cases(scfg, dev) -> list:
     # (56,) label table over the int64 argmax of 56 channels, cast)
     atlas = torch.rand(ATLAS_SHAPE, generator=g, device=dev)
     agrid = with_edges(atlas_grid(dev), ATLAS_SHAPE[0])
-    zero = torch.zeros((), device=dev)
     cases.append(Case(
         "warp_linear_f32 C=1 atlas", "warp_linear_f32",
         lambda: warp_volume(atlas, agrid, default=0.0),
@@ -582,6 +633,76 @@ def procedural_atlas(shape, seed, dev):
     inside = (x / 0.7) ** 2 + (y / 0.85) ** 2 + (z / 0.65) ** 2 < 1
     tex = torch.sigmoid(2 * _smooth_noise(shape, (12, 12, 12), g, dev))
     return torch.where(inside, tex, 0.0).cpu().numpy()
+
+
+# the stream phases' data root: these datasets and modalities, each
+# subject a procedural label map with its contrasts; ATLAS also holds the
+# stroke-lesion pool
+STREAM_DATASETS = {"HCP": ("T1", "T2"), "ATLAS": ("T1",)}
+
+
+def lesion_blob(shape, seed, centre=None):
+    """A lesion-probability volume (float32): a smooth ellipsoidal blob in
+    [0, 1] with seeded radii, at `centre` (in [-1, 1] per axis) or a
+    seeded place in the middle of the volume."""
+    rng = np.random.default_rng(seed)
+    ax = [np.linspace(-1, 1, n, dtype=np.float32) for n in shape]
+    x, y, z = np.meshgrid(*ax, indexing="ij")
+    c = rng.uniform(-0.35, 0.35, 3) if centre is None else centre
+    r = rng.uniform(0.12, 0.25, 3)
+    d2 = ((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2 \
+        + ((z - c[2]) / r[2]) ** 2
+    return np.clip(1.0 - d2, 0.0, None).astype(np.float32)
+
+
+def write_subject_root(root, extent, n_subjects=2, n_lesions=2, seed=0):
+    """Subject files in synth/datasets.py's DATASET_SETUPS layout under
+    `root`: for each dataset of STREAM_DATASETS, `n_subjects` procedural
+    subjects (SubjectBank.add_debug_subject's label maps of `extent`: the
+    generation labels and the segmentation int32, T1 float32, T2 the T1
+    mirrored and scaled), some .nii.gz and some .nii; ATLAS's lesion pool
+    of `n_lesions` maps and probabilities; the split files train.txt and
+    train_age.txt and the age table participants_age.txt. Returns
+    (data_root, split_root)."""
+    data_root = os.path.join(root, "data")
+    split_root = os.path.join(root, "splits")
+    os.makedirs(split_root, exist_ok=True)
+    names, ages = [], []
+
+    def write(base, sub, name, vol):
+        d = os.path.join(base, sub)
+        os.makedirs(d, exist_ok=True)
+        save_nifti(os.path.join(d, name), vol)
+
+    for di, (ds, mods) in enumerate(STREAM_DATASETS.items()):
+        setup = DATASET_SETUPS[ds]
+        base = os.path.join(data_root, setup["root"])
+        for i in range(n_subjects):
+            sid = f"{ds}_sub{i:03d}"
+            bank = SubjectBank(extent)
+            bank.add_debug_subject(seed=seed + 10 * di + i, extent=extent)
+            s = bank.subjects[0]
+            vols = {"Gen": s["gen"], "segmentation": s["seg"], "T1": s["T1"]}
+            if "T2" in mods:
+                vols["T2"] = np.ascontiguousarray(0.7 * s["T1"][::-1])
+            for key, vol in vols.items():
+                ext = ".nii.gz" if key in ("Gen", "T1") else ".nii"
+                write(base, setup["paths"][key], sid + ext, vol)
+            names.append(sid + ".nii.gz")
+            ages.append(f"{sid} {20 + 7 * i + di}")
+        if setup["pathology_type"] == "stroke":
+            for j in range(n_lesions):
+                prob = lesion_blob(extent, seed + 100 + j)
+                write(base, setup["paths"]["pathology_prob"],
+                      f"lesion{j:02d}.nii.gz", prob)
+                write(base, setup["paths"]["pathology"],
+                      f"lesion{j:02d}.nii.gz",
+                      (prob > 0.5).astype(np.float32))
+    for fn, lines in (("train.txt", names), ("train_age.txt", names),
+                      ("participants_age.txt", ages)):
+        with open(os.path.join(split_root, fn), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return data_root, split_root
 
 
 EXPECTED_HEADS = {"T1": 1, "T2": 1, "FLAIR": 1, "CT": 1, "bias_field_log": 1,
@@ -1132,6 +1253,296 @@ def run_train(dev, power, tmp, cfg=None, bank_shape=BANK):
     return launches
 
 
+def stream_gen_cfg(cfg, root, **generator):
+    """`cfg` reading the data root `root` = (data_root, split_root) with
+    STREAM_DATASETS, generator keys overridden by `generator`."""
+    cfg = copy.deepcopy(cfg)
+    cfg.data_root, cfg.split_root = root
+    cfg.dataset_names = list(STREAM_DATASETS)
+    cfg.generator.update(generator)
+    return cfg
+
+
+def check_stream_reference(dev, tmp):
+    """Procedural subject files (40-44 voxels a side, a 48^3 bank) read by
+    build_datasets on the GPU and on the CPU; one item per dataset (32^3,
+    S=4) with deform_one_hots, pathology forced on from the lesion pool
+    (K1 on the lesion file, dopri5 advection) and the surface task's
+    inverse field, made on the GPU and replayed on the CPU from its draws;
+    binary targets (the segmentation's argmax, the pathology) agree on
+    SEG_AGREE of the voxels, the rest within REPLAY_TOL; the small model on
+    the GPU item's input on both devices within MODEL_TOL."""
+    base = process_args(flagship_cfg())
+    root = write_subject_root(os.path.join(tmp, "ref_root"), (40, 44, 42))
+    cfg = stream_gen_cfg(base, root, size=[32, 32, 32], deform_one_hots=True,
+                         pathology_prob=1.0, random_shape_prob=0.0,
+                         augment_pathology=True)
+    tasks = tuple(base.tasks) + ("pathology", "surface")
+    sets = {d: build_datasets(cfg, tasks, device=d, bank_shape=(48, 48, 48))
+            for d in (dev, "cpu")}
+    errs, agree, stats, bad = {}, {}, {}, {}
+    kernels.reset_launches()
+    inputs = []
+    for name in STREAM_DATASETS:
+        gds, cds = sets[dev][name], sets["cpu"][name]
+        gds.reseed(0)
+        cds.reseed(0)
+        rec, st = {}, {}
+        tg, sg = gds.get(0, torch.Generator(dev).manual_seed(5), record=rec,
+                         stats=st)
+        tc, sc = cds.get(0, draws=rec)
+        stats[name] = st
+        inputs.append(sg["input"])
+        for k in tg:
+            if k in ("segmentation", "pathology"):
+                a, b = tg[k].cpu(), tc[k]
+                if k == "segmentation":
+                    errs[f"{name}.{k}"] = _max_err(a, b)
+                    a, b = a.argmax(-1), b.argmax(-1)
+                agree[f"{name}.{k}"] = float((a == b).float().mean())
+            else:
+                errs[f"{name}.{k}"] = _max_err(tg[k], tc[k])
+        for k in sg:
+            errs[f"{name}.sample.{k}"] = _max_err(sg[k], sc[k])
+        if not float(tg["pathology"].sum()) > 0 or "lesion_warp_ms" not in st:
+            bad[f"{name}.pathology"] = float(tg["pathology"].sum())
+    launches = dict(kernels.LAUNCHES)
+    bad |= {k: v for k, v in errs.items() if not v <= REPLAY_TOL}
+    bad |= {k: v for k, v in agree.items() if not v >= SEG_AGREE}
+    if launches["warp_linear_f32"] < 1 or launches["lut_gather_i32"] < 1:
+        bad["launches"] = launches
+    torch.manual_seed(0)
+    mcfg, m_gpu = build_model(small_model_cfg(), device=dev)
+    _, m_cpu = build_model(small_model_cfg(), device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    x = torch.cat(inputs)
+    with torch.no_grad():
+        og = apply_processors(m_gpu(x), mcfg)
+        oc = apply_processors(m_cpu(x.cpu()), mcfg)
+    rel = {f"model.{k}": _rel_err(og[k], oc[k]) for k in og if k != "feat"}
+    bad |= {k: v for k, v in rel.items() if not v <= MODEL_TOL}
+    emit({"phase": "stream_reference", "size": [32, 32, 32],
+          "bank": [48, 48, 48], "datasets": list(STREAM_DATASETS),
+          "tasks": list(tasks), "max_abs_err": errs, "agree": agree,
+          "model_rel_err": rel, "stats": stats, "launches": launches,
+          "replay_tol": REPLAY_TOL, "seg_agree_min": SEG_AGREE,
+          "model_tol": MODEL_TOL})
+    if bad:
+        raise AssertionError(f"stream GPU/CPU disagreement: {bad}")
+
+
+def _run_cli(args):
+    """scripts/train.py::main with its standard output captured; the exit
+    code must be 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_script.main(args)
+    if rc != 0:
+        raise AssertionError(f"train CLI exit {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def run_stream(dev, power, tmp):
+    """The training CLI on a data root of STREAM_DATASETS at STREAM_EXTENT
+    with the flagship configs (brain_id under the data root, joint; the
+    train phase's memory settings): one epoch of STREAM_ITR iterations on
+    the dataset stream (validation, checkpoints), --eval_only --resume on
+    its checkpoint, then TRAIN_TIMED stream iterations timed in two parts
+    (the item, the step), each ended by a synchronize. Ingest seconds (the
+    CLI's codec ingest of every subject), peak memory and launch counts
+    over the phase."""
+    t0 = time.perf_counter()
+    root = write_subject_root(os.path.join(tmp, "root"), STREAM_EXTENT)
+    write_s = time.perf_counter() - t0
+    gen_yaml = os.path.join(tmp, "stream_gen.yaml")
+    with open(os.path.join(ROOT, "cfgs/generator/train/brain_id.yaml")) as f:
+        text = f.read()
+    with open(gen_yaml, "w") as f:
+        f.write(f"{text}\ndata_root: {root[0]}\nsplit_root: {root[1]}\n"
+                f"dataset_names: {list(STREAM_DATASETS)}\n")
+    out = os.path.join(tmp, "stream_run")
+    args = ["--gen_cfg", gen_yaml, "--train_cfg", "joint", "--epochs", "1",
+            "--itr_per_epoch", str(STREAM_ITR), "--out_dir", out,
+            "--remat", TRAIN_REMAT, "--grad_accum", str(TRAIN_ACCUM),
+            "--device", str(dev)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    text = _run_cli(args)
+    cli_s = time.perf_counter() - t0
+    m = re.search(r"datasets: (\{.*?\}) \(ingest ([\d.]+) s\)", text)
+    n_subjects = ast.literal_eval(m[1]) if m else None
+    ingest_s = float(m[2]) if m else None
+    # the CLI logs every 10th step; the epoch line holds every step's mean
+    # loss (NaN-free) and the share of skipped steps
+    with open(os.path.join(out, "log.txt")) as f:
+        epoch = json.loads(f.readline())
+    ckpt = os.path.join(out, "ckp", f"ckpt_{STREAM_ITR:06d}")
+    text = _run_cli(args + ["--eval_only", "--resume", ckpt])
+    val = [ast.literal_eval(v) for v in re.findall(r"val\[\d+\]: (\{.*\})",
+                                                   text)]
+
+    cfg = train_script.train_config(gen_yaml, "joint")
+    cfg.remat, cfg.grad_accum_samples = TRAIN_REMAT, TRAIN_ACCUM
+    torch.manual_seed(0)
+    cfg, model = build_model(cfg, device=dev)
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    t0 = time.perf_counter()
+    stream = build_datasets(cfg, cfg.tasks, device=dev)["_concat"]
+    ingest_timed_s = time.perf_counter() - t0
+    state = TrainState(model, build_optimizer(cfg, model.parameters()), 0)
+    step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
+                              state.optimizer, sample_accum=TRAIN_ACCUM)
+    items = stream.epoch(0, TRAIN_TIMED, seed=1)
+    timed = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        name, target, samples = next(items)
+        batch = stack_items([target], [samples])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, mt = step_fn(state, batch, 1e-4, 1e-2)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del batch, target, samples
+        timed.append({"dataset": name, "item_ms": (t1 - t0) * 1e3,
+                      "step_ms": (t2 - t1) * 1e3, "iter_ms": (t2 - t0) * 1e3,
+                      "loss_total": float(mt["loss_total"]),
+                      "skipped": int(mt["skipped"])})
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    bad = []
+    if n_subjects != {n: 2 for n in STREAM_DATASETS}:
+        bad.append(f"datasets {n_subjects}")
+    if not (np.isfinite(epoch["train_loss_total"])
+            and epoch["train_skipped"] == 0
+            and np.isfinite(epoch["val_loss_total"])) or not all(
+                np.isfinite(t["loss_total"]) and t["skipped"] == 0
+                for t in timed):
+        bad.append(f"epoch {epoch} timed {timed}")
+    if len(val) != 2 or not all(np.isfinite(v["loss_total"]) for v in val):
+        bad.append(f"eval_only {val}")
+    if launches["warp_linear_f32"] < 1 or launches["lut_gather_i32"] < 1 \
+            or launches["lut_gather_f32"] < 1:
+        bad.append(f"path missed a kernel: {launches}")
+    emit({"phase": "stream", "extent": list(STREAM_EXTENT),
+          "bank": list(BANK), "datasets": n_subjects,
+          "size": list(cfg.generator.size), "f_maps": int(cfg.f_maps),
+          "num_levels": int(cfg.num_levels), "amp": "bf16",
+          "remat": TRAIN_REMAT, "itr_per_epoch": STREAM_ITR,
+          "write_s": write_s, "ingest_s": ingest_s,
+          "ingest_timed_s": ingest_timed_s, "cli_train_s": cli_s,
+          "epoch": epoch, "eval_only_val": val, "timed": timed,
+          "item_ms": [t["item_ms"] for t in timed],
+          "step_ms": [t["step_ms"] for t in timed],
+          "iter_ms": [t["iter_ms"] for t in timed], "peak_mem_gib": peak,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"stream phase failed: {bad}")
+    return launches
+
+
+def run_pathology(dev, power):
+    """PATHOLOGY_ITEMS items of the shape_id generator (160^3 from a 192^3
+    bank, S=1, dopri5, augment_pathology) with pathology forced on, from a
+    random shape and from the subject's lesion file alternately; each
+    item's wall on the host clock split by synth_item's stats into the
+    shape synthesis (or the lesion warp), the advection (with nt and the
+    adaptive steps) and the rest; then the flagship model (joint: f_maps
+    64, L6, bf16, AdamW) on the shape_id tasks trains one step on each
+    item. An untimed item and step go first."""
+    cfg = train_script.train_config("shape_id", "joint")
+    cfg.remat, cfg.grad_accum_samples = TRAIN_REMAT, TRAIN_ACCUM
+    torch.manual_seed(0)
+    cfg, model = build_model(cfg, device=dev)
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    scfg = SynthStatic.from_cfg(cfg)
+    bank = SubjectBank(BANK)
+    bank.add_debug_subject(seed=0, extent=tuple(s * 5 // 6 for s in BANK))
+    bank.subjects[0]["pathol_prob"] = lesion_blob(BANK, 3, centre=(
+        -1 / 6, -1 / 6, -1 / 6))   # the centre of the 160^3 subject
+    subj = bank.to_device(0, dev)
+    knobs = knobs_from_cfg(cfg, scfg, "synth")
+    state = TrainState(model, build_optimizer(cfg, model.parameters()), 0)
+    step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
+                              state.optimizer, sample_accum=TRAIN_ACCUM)
+
+    # warm-up: an untimed item and step (first calls, cuDNN's choices)
+    target, samples = synth_item(torch.Generator(dev).manual_seed(19), subj,
+                                 scfg, cfg.tasks, "synth", knobs,
+                                 draws={"setup": {"pathol_u": 0.0,
+                                                  "shape_u": 0.0}})
+    state, _ = step_fn(state, stack_items([target], [samples]), 1e-4, 1e-2)
+    del target, samples
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    items, bad = [], []
+    seed = 20
+    for i in range(PATHOLOGY_ITEMS):
+        shape_u = 0.0 if i % 2 == 0 else 0.99   # random shape, lesion file
+        draws = {"setup": {"pathol_u": 0.0, "shape_u": shape_u}}
+        # a shape can be keep-masked away or advected below pathol_tol:
+        # up to 3 draws for a non-empty target, each item timed
+        for _ in range(3):
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            target, samples = synth_item(torch.Generator(dev).manual_seed(
+                seed), subj, scfg, cfg.tasks, "synth", knobs, draws=draws,
+                stats=st)
+            torch.cuda.synchronize()
+            item_ms = (time.perf_counter() - t0) * 1e3
+            seed += 1
+            parts = sum(st.get(k, 0.0) for k in ("shape_ms", "lesion_warp_ms",
+                                                 "advect_ms"))
+            rec = {"source": ("random shape" if shape_u < 0.5
+                              else "lesion file"), "seed": seed - 1,
+                   "item_ms": item_ms, "rest_ms": item_ms - parts,
+                   "pathology_voxels": float(target["pathology"].sum()),
+                   **st}
+            items.append(rec)
+            if rec["pathology_voxels"] > 0:
+                break
+        if not rec["pathology_voxels"] > 0:
+            bad.append(rec)
+        batch = stack_items([target], [samples])
+        del target, samples
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, mt = step_fn(state, batch, 1e-4, 1e-2)
+        torch.cuda.synchronize()
+        rec.update(step_ms=(time.perf_counter() - t1) * 1e3,
+                   loss_total=float(mt["loss_total"]),
+                   skipped=int(mt["skipped"]))
+        if rec["skipped"] or not np.isfinite(rec["loss_total"]):
+            bad.append(rec)
+        del batch
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the shape_id tasks (T1, pathology) have no segmentation: no label
+    # lookup or nearest warp; K1 warps each item's wall (and each lesion
+    # file), K2 looks up each item's contrast
+    if launches["warp_linear_f32"] < PATHOLOGY_ITEMS \
+            or launches["lut_gather_f32"] < PATHOLOGY_ITEMS:
+        bad.append(f"path missed a kernel: {launches}")
+    emit({"phase": "pathology", "size": list(scfg.size), "bank": list(BANK),
+          "samples": scfg.all_samples, "tasks": list(cfg.tasks),
+          "integ_method": scfg.integ_method, "f_maps": int(cfg.f_maps),
+          "num_levels": int(cfg.num_levels), "items": items,
+          "item_ms": [r["item_ms"] for r in items],
+          "step_ms": [r["step_ms"] for r in items if "step_ms" in r],
+          "peak_mem_gib": peak,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"pathology phase failed: {bad}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1173,18 +1584,27 @@ def main():
         lap("train_reference")
         train_launches = run_train(dev, power, tmp)
         lap("train")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_stream_reference(dev, tmp)
+        lap("stream_reference")
+        stream_launches = run_stream(dev, power, tmp)
+        lap("stream")
+    torch.cuda.empty_cache()
+    pathology_launches = run_pathology(dev, power)
+    lap("pathology")
     emit({"phase": "elapsed_s", **elapsed})
+    paths = {"slice": slice_launches, "serve": serve_launches,
+             "train": train_launches, "stream": stream_launches,
+             "pathology": pathology_launches}
 
     keys = ("case", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name],
-         "launches": (slice_launches[name] + serve_launches[name]
-                      + train_launches[name]),
-         "launches_by_path": {"slice": slice_launches[name],
-                              "serve": serve_launches[name],
-                              "train": train_launches[name]},
+         "launches": sum(p[name] for p in paths.values()),
+         "launches_by_path": {k: p[name] for k, p in paths.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],

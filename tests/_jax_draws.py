@@ -91,13 +91,57 @@ def aug_overrides(key, cfg, knobs, steps, is_ct=False):
     return _np(ov)
 
 
-def item_draws(key, cfg, input_mode, knobs_stack, gen_shape):
+def perlin_draws(key, res):
+    """ops/perlin.py perlin_noise_3d: the lattice's theta and phi."""
+    k1, k2 = jax.random.split(key)
+    lattice = tuple(int(r) + 1 for r in res)
+    return _np({"theta_u": U(k1, lattice), "phi_u": U(k2, lattice)})
+
+
+def velocity_draws(key, res):
+    """ops/perlin.py velocity_3d: three potentials."""
+    return {"potential": [perlin_draws(k, res)
+                          for k in jax.random.split(key, 3)]}
+
+
+def random_shape_draws(key, cfg):
+    """synth/pathology.py random_shape."""
+    k1, k2 = jax.random.split(key)
+    return {"percentile_u": np.asarray(U(k1)),
+            "shape": perlin_draws(k2, cfg.perlin_res)}
+
+
+def augment_pathology_draws(key, cfg):
+    """synth/pathology.py augment_pathology."""
+    k1, k2 = jax.random.split(key)
+    return {"nt": np.asarray(jax.random.randint(k1, (), 1, cfg.max_nt + 1)),
+            "velocity": velocity_draws(k2, cfg.perlin_res)}
+
+
+def pathology_target_draws(key, cfg):
+    """synth/engine.py _target_pathology (the draws of its `_on` branch)."""
+    k1, k2 = jax.random.split(key)
+    return {"shape": random_shape_draws(k1, cfg),
+            "augment": augment_pathology_draws(k2, cfg)}
+
+
+def encode_draws(key, shape):
+    """synth/pathology.py encode_pathology."""
+    k1, k2, k3 = jax.random.split(key, 3)
+    return _np({"mus_u": U(k1, (10000,)), "sigmas_u": U(k2, (10000,)),
+                "noise": N(k3, tuple(shape))})
+
+
+def item_draws(key, cfg, input_mode, knobs_stack, gen_shape, tasks=()):
     """Every draw of synth/engine.py `_synth_item_impl` for `key`, nested
     as brainfm_tpu_torch's synth_item(draws=...) reads them."""
-    k_setup, k_field, k_aff, _k_tgt, k_samp = jax.random.split(key, 5)
+    k_setup, k_field, k_aff, k_tgt, k_samp = jax.random.split(key, 5)
     d = {"setup": setup_draws(k_setup), "affine": affine_draws(k_aff)}
     if cfg.nonlinear_transform:
         d["field"] = field_draws(k_field, cfg)
+    pathology = "pathology" in tasks
+    if pathology:
+        d["pathology"] = pathology_target_draws(k_tgt, cfg)
     S = cfg.all_samples
     if input_mode == "synth":
         kl, kn = jax.random.split(jax.random.fold_in(k_samp, 10_000))
@@ -114,11 +158,13 @@ def item_draws(key, cfg, input_mode, knobs_stack, gen_shape):
             k3, k4, k5 = jax.random.split(ki, 3)
             if cfg.mix_synth_prob > 0:
                 s.update(_np({"mix_u": U(k3), "mix_v": U(k4, (4,))}))
-            k_aug = jax.random.split(k5)[1]
+            k_enc, k_aug = jax.random.split(k5)
             steps = cfg.aug_steps_synth
         else:
-            k_aug = jax.random.split(jax.random.split(ki)[1])[1]
+            k_enc, k_aug = jax.random.split(jax.random.split(ki)[1])
             steps = cfg.aug_steps_real
+        if pathology:
+            s["encode"] = encode_draws(k_enc, cfg.size)
         s["aug"] = aug_overrides(k_aug, cfg, knobs, steps,
                                  is_ct=input_mode == "CT")
         samples.append(s)

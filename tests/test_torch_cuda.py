@@ -77,10 +77,11 @@ def _assert_linear(vol, grid, dflt):
     assert float((got - want).abs().max()) <= LINEAR_ATOL
 
 
-@pytest.mark.parametrize("channels", [None, 1, 3, 4, 8, 12])
+@pytest.mark.parametrize("channels", [None, 1, 3, 4, 8, 12, 16, 56])
 def test_warp_linear_matches_plain(dev, channels):
     """Float4 channel quads (C % 4 == 0) and single channels (C = none, 1,
-    3) on the brick grid."""
+    3) on the brick grid; 16 is the pathology item's target wall, 56 the
+    one-hot segmentation (deform_one_hots)."""
     rng = np.random.default_rng(0)
     _assert_linear(*_linear_case(rng, channels, (30, 31, 29), dev))
 
@@ -168,6 +169,30 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_integrate_svf_through_k1_matches_plain(dev):
+    """Scaling and squaring (synth/deform.py::integrate_svf) composes the
+    field through K1 on the card: at its coordinates (the identity grid
+    plus the field, some of them outside the volume) K1 gives
+    trilinear3d's values, so the integrated field and its inverse match
+    the CPU's."""
+    from brainfm_tpu_torch.synth.deform import integrate_svf
+
+    rng = np.random.default_rng(5)
+    F = torch.from_numpy(3 * rng.standard_normal((20, 22, 18, 3))
+                         .astype(np.float32))
+    gf, gn = integrate_svf(F.to(dev), 8)
+    cf, cn = integrate_svf(F, 8)
+    assert float((gf.cpu() - cf).abs().max()) <= LINEAR_ATOL
+    assert float((gn.cpu() - cn).abs().max()) <= LINEAR_ATOL
+    f = (F / 16).to(dev)
+    xx, yy, zz = torch.meshgrid(*[torch.arange(n, dtype=torch.float32,
+                                               device=dev)
+                                  for n in f.shape[:3]], indexing="ij")
+    grid = [(xx + f[..., 0]).contiguous(), (yy + f[..., 1]).contiguous(),
+            (zz + f[..., 2]).contiguous()]
+    _assert_linear(f.contiguous(), grid, 0.0)
 
 
 def test_warp_linear_atlas_shape(dev):

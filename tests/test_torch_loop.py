@@ -1,9 +1,13 @@
 """The port's training loop on the CPU: the eval step, conditioning, batch
 stacking and the samplers against the JAX package's; then the port's own
 loop: checkpoints in its format, train() with a resume that ends bitwise
-where an uninterrupted run ends, the training CLI, and every branch that
-is not ported yet (each raises NotImplementedError)."""
+where an uninterrupted run ends, train() on the dataset stream, the
+training CLI (from a data root in the DATASET_SETUPS layout, and
+--eval_only), and every branch that is not ported yet (each raises
+NotImplementedError)."""
 
+import functools
+import importlib.util
 import json
 import os
 
@@ -22,7 +26,7 @@ from brainfm_tpu_torch.infer import Inferencer
 from brainfm_tpu_torch.models import build_model
 from brainfm_tpu_torch.models.criterion import make_criterion
 from brainfm_tpu_torch.scripts import train as train_script
-from brainfm_tpu_torch.synth import SubjectBank, sampler
+from brainfm_tpu_torch.synth import SubjectBank, datasets, sampler
 from brainfm_tpu_torch.synth.batch import stack_items
 from brainfm_tpu_torch.train import checkpoint as ckpt
 from brainfm_tpu_torch.train import loop
@@ -297,42 +301,78 @@ def test_val_set_is_fixed_and_staging_ships_uncached():
 
 # --------------------------------------------------------------------- CLI
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
 @pytest.fixture
 def small_bank(monkeypatch):
-    """The CLI's debug bank at 24^3 (the script's is 192^3)."""
-    build = train_script.build_bank
-    monkeypatch.setattr(train_script, "build_bank", lambda cfg: build(
-        cfg, bank_shape=(24, 24, 24), extent=(22, 22, 22)))
+    """The CLI's datasets at a 24^3 bank with 22^3 debug subjects (the
+    script's are 192^3 and 160^3)."""
+    monkeypatch.setattr(train_script, "build_datasets", functools.partial(
+        datasets.build_datasets, bank_shape=(24, 24, 24),
+        debug_extent=(22, 22, 22)))
 
 
-def _cli_cfgs(tmp_path):
+def _cli_cfgs(tmp_path, gen_extra=""):
     tr, gen = tmp_path / "tr.yaml", tmp_path / "gen.yaml"
     tr.write_text("job_name: cli\nf_maps: 8\nnum_levels: 2\n"
                   "task_f_maps: [8]\nremat: False\n")
-    gen.write_text("generator:\n  size: [16, 16, 16]\n")
+    gen.write_text("generator:\n  size: [16, 16, 16]\n" + gen_extra)
     return ["--train_cfg", str(tr), "--gen_cfg", str(gen)]
 
 
+def _data_root_cfg(tmp_path):
+    """A generator YAML over a procedural data root of two datasets in the
+    DATASET_SETUPS layout (chip_smoke.write_subject_root)."""
+    data, split = chip_smoke.write_subject_root(str(tmp_path / "root"),
+                                                (20, 22, 21))
+    return (f"data_root: {data}\nsplit_root: {split}\n"
+            "dataset_names: [HCP, ATLAS]\n")
+
+
 def test_cli_debug_run_on_cpu(tmp_path, capsys, small_bank):
+    """Without a data root: one debug subject in each of the eight
+    datasets, trained on their stream."""
     out = tmp_path / "run"
     assert train_script.main([*_cli_cfgs(tmp_path), "--device", "cpu",
                               "--debug", "--no_amp", "--out_dir",
                               str(out)]) == 0
-    assert "final step 2" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    assert "final step 2" in text
+    assert "datasets: {'ADHD': 1, 'HCP': 1, 'AIBL': 1, 'OASIS': 1" in text
     assert (out / "log.txt").is_file()
     assert (out / "ckp" / "ckpt_000002").is_dir()
 
 
 # ------------------------------------------------------- not ported (yet)
 
-@pytest.mark.parametrize("kw", [{"stream": object()}, {"mesh": object()},
-                                {"fsdp": True},
+@pytest.mark.parametrize("kw", [{"stream": "debug datasets"},
+                                {"mesh": object()}, {"fsdp": True},
                                 {"twostage_models": (None, None)},
                                 {"vis_itr": 5}])
 def test_train_refuses_what_is_not_ported(tmp_path, kw):
+    """mesh=, fsdp, two-stage models and the visualizer raise; stream=, a
+    refusal before the dataset stream was ported, now trains: two debug
+    datasets' stream, no bank."""
     torch.manual_seed(0)
     cfg, model = build_model(_small_train_cfg(1), device="cpu")
     _, w, fn = make_criterion(cfg)
+    if "stream" in kw:
+        cfg.dataset_names = ["HCP", "ATLAS"]
+        ds = datasets.build_datasets(cfg, cfg.tasks, device="cpu",
+                                     bank_shape=BANK,
+                                     debug_extent=(20, 22, 20))
+        state = loop.train(cfg, model, w, fn, None, str(tmp_path),
+                           itr_per_epoch=2, n_val_items=1,
+                           stream=ds["_concat"])
+        assert state.step == 2
+        line = json.loads(open(tmp_path / "log.txt").read())
+        assert np.isfinite(line["val_loss_total"])
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         loop.train(cfg, model, w, fn, None, str(tmp_path), **kw)
 
@@ -348,22 +388,72 @@ def test_train_refuses_the_critic_flag(tmp_path):
 
 @pytest.mark.parametrize("case", ["mesh", "fsdp", "eval_only", "data_root",
                                   "twostage"])
-def test_cli_refuses_what_is_not_ported(tmp_path, case):
-    args = [*_cli_cfgs(tmp_path), "--device", "cpu", "--debug",
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys, small_bank, case):
+    """--mesh, --fsdp and two-stage backbones raise. The two cases that
+    were refused before the dataset stream was ported now run: a data root
+    in the DATASET_SETUPS layout trains on its subjects (read through the
+    codec); --eval_only without --resume is an error, and with the
+    checkpoint of that run scores the stream's validation set."""
+    args = [*_cli_cfgs(tmp_path, _data_root_cfg(tmp_path)
+                       if case in ("eval_only", "data_root") else ""),
+            "--device", "cpu", "--debug", "--no_amp",
             "--out_dir", str(tmp_path / "run")]
-    if case in ("mesh", "fsdp", "eval_only"):
-        args += {"mesh": ["--mesh", "2"], "fsdp": ["--fsdp"],
-                 "eval_only": ["--eval_only"]}[case]
+    if case in ("eval_only", "data_root"):
+        assert train_script.main(args) == 0
+        text = capsys.readouterr().out
+        assert "datasets: {'HCP': 2, 'ATLAS': 2}" in text
+        assert "final step 2" in text
+        if case == "eval_only":
+            with pytest.raises(SystemExit):
+                train_script.main([*args, "--eval_only"])
+            ckpt = str(tmp_path / "run" / "ckp" / "ckpt_000002")
+            assert train_script.main([*args, "--eval_only", "--resume",
+                                      ckpt]) == 0
+            lines = [ln for ln in capsys.readouterr().out.splitlines()
+                     if ln.startswith("val[")]
+            assert len(lines) == 2 and "'loss_total'" in lines[0]
+        return
+    if case in ("mesh", "fsdp"):
+        args += {"mesh": ["--mesh", "2"], "fsdp": ["--fsdp"]}[case]
     else:
-        root = tmp_path / "data"
-        root.mkdir()
-        (root / "s1.T1w.nii.gz").write_bytes(b"")
-        extra = (f"data_root: {root}\n" if case == "data_root"
-                 else "backbone: unet3d+unet3d\n")
         with open(tmp_path / "tr.yaml", "a") as f:
-            f.write(extra)
+            f.write("backbone: unet3d+unet3d\n")
     with pytest.raises(NotImplementedError):
         train_script.main(args)
+
+
+def test_build_bank_reads_the_flat_layout(tmp_path):
+    """scripts/train.py::build_bank (the flat layout of
+    scripts/demo_generator.py): <id>.T1w with its generation labels,
+    segmentation, distance and registration companions, through
+    SubjectBank.add_many; a T1 without generation labels is skipped."""
+    from brainfm_tpu_torch.config import AttrDict
+    from brainfm_tpu_torch.utils.nifti import save_nifti
+
+    rng = np.random.default_rng(0)
+    shape = (14, 15, 13)
+    for sid in ("a", "b"):
+        lab = rng.integers(0, 30, shape).astype(np.int32)
+        save_nifti(str(tmp_path / f"{sid}.T1w.nii.gz"),
+                   rng.random(shape).astype(np.float32))
+        if sid == "b":
+            continue
+        save_nifti(str(tmp_path / f"{sid}.generation_labels.nii"), lab)
+        save_nifti(str(tmp_path / f"{sid}.seg_x.nii.gz"), lab)
+        for k in ("lp", "lw", "rp", "rw"):
+            save_nifti(str(tmp_path / f"{sid}.{k}_dist_map.nii"),
+                       rng.random(shape).astype(np.float32))
+        for a in "xyz":
+            save_nifti(str(tmp_path / f"{sid}.mni_reg.{a}.nii.gz"),
+                       rng.random(shape).astype(np.float32))
+    cfg = AttrDict(data_root=str(tmp_path), segment_prefix="seg_x")
+    bank = train_script.build_bank(cfg, bank_shape=(16, 16, 16))
+    assert len(bank) == 1
+    subj = bank.subjects[0]
+    assert list(subj) == ["T1", "gen", "seg", "dist", "reg", "shape"]
+    assert subj["dist"].shape == (16, 16, 16, 4)
+    assert subj["reg"].shape == (16, 16, 16, 3)
+    assert subj["shape"].tolist() == list(shape)
 
 
 def test_training_entry_points_refuse_cpu_fallback(tmp_path, small_bank):

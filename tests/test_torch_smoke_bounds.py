@@ -77,7 +77,10 @@ def test_kernel_cases_cover_every_kernel(monkeypatch):
     scfg = chip_smoke.SynthStatic(**{**scfg.__dict__, "size": (12, 12, 12)})
     cases = chip_smoke.kernel_cases(scfg, torch.device("cpu"))
     assert [c.name for c in cases] == [
-        "warp_linear_f32 C=12", "warp_linear_f32 C=1", "warp_nearest_i32",
+        "warp_linear_f32 C=12", "warp_linear_f32 C=1",
+        "warp_linear_f32 C=16 wall", "warp_linear_f32 C=1 lesion",
+        "warp_linear_f32 C=56 one-hot", "warp_linear_f32 C=3 svf",
+        "warp_nearest_i32",
         "lut_gather_i32 K=10000", "lut_gather_i32 K=56",
         "lut_gather_f32 K=256 C=8", *chip_smoke.SERVING_CASES]
     assert {c.fn for c in cases} == set(chip_smoke.SOURCES)
