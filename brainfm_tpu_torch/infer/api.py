@@ -6,6 +6,8 @@ loaded once per Inferencer and serves every call. Nothing is compiled:
 PyTorch runs eagerly, so the JAX package's separate jits of the forward and
 of `postprocess` have no counterpart. The deformed atlas is a K1 warp
 (ops/warp.py::warp_volume) and the label map a K2 lookup (in `postprocess`).
+`TwoStageInferencer` serves the two-stage pair (stage-0 mask, masked
+mask-conditioned stage 1) the same way.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ import numpy as np
 import torch
 
 from ..device import exact_fp32, resolve_device
-from ..models.build import apply_processors, build_model, postprocess
+from ..models.build import (build_inpaint_model, build_model, postprocess,
+                            process_outputs)
 from ..models.params_io import load_pth
-from ..train.checkpoint import is_checkpoint_dir, load_model_weights
+from ..train.checkpoint import (MODEL_FILE, is_checkpoint_dir,
+                                latest_checkpoint, load_model_weights)
 from ..ops.warp import warp_volume
 from ..utils.nifti import MRIread, viewVolume
 from .prepare import prepare_image
@@ -58,9 +62,18 @@ class Inferencer:
         # gives every device the same weights
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            self.cfg, self.model = build_model(cfg, device=self.device)
+            self.cfg, self.model = self._build(cfg)
         if compute_dtype == torch.float64:
             self.model.double()
+        self._load(ckpt_path)
+        self.model.eval()
+        self._in_dtype = (torch.float64 if compute_dtype == torch.float64
+                          else torch.float32)
+
+    def _build(self, cfg):
+        return build_model(cfg, device=self.device)
+
+    def _load(self, ckpt_path):
         if ckpt_path and str(ckpt_path).endswith((".pth", ".pt")):
             load_pth(self.model, str(ckpt_path))
         elif ckpt_path and is_checkpoint_dir(ckpt_path):
@@ -72,9 +85,6 @@ class Inferencer:
                 "The JAX package's orbax checkpoints are not read here: its "
                 "weights cross as numpy arrays through "
                 "models/params_io.from_jax_params")
-        self.model.eval()
-        self._in_dtype = (torch.float64 if compute_dtype == torch.float64
-                          else torch.float32)
 
     def _as_input(self, x):
         return torch.as_tensor(x).to(self.device, self._in_dtype)
@@ -84,18 +94,19 @@ class Inferencer:
 
     def _forward(self, x, keep_feat: bool = True):
         """Model + output processors on x (B,D,H,W,1). keep_feat=False drops
-        the decoder feature pyramid as soon as the head has run."""
+        the decoder feature pyramids as soon as the heads have run."""
         bf16 = self.compute_dtype == torch.bfloat16
         with self._precision():
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=bf16):
                 out = self.model(x)
             if not keep_feat:
-                out.pop("feat", None)
+                out = {k: v for k, v in out.items()
+                       if not k.startswith("feat")}
             if bf16:
-                out = {k: v if k == "feat" else v.float()
+                out = {k: v if k.startswith("feat") else v.float()
                        for k, v in out.items()}
-            return apply_processors(out, self.cfg)
+            return process_outputs(self.model, out, self.cfg)
 
     def _post(self, out, x):
         return postprocess(out, self.cfg, samples={"input": x})
@@ -165,7 +176,7 @@ class Inferencer:
         slower); PyTorch's host allocator keeps the buffers for the next
         volume."""
         sel = {k: v for k, v in outs.items()
-               if k not in exclude_keys and k != "feat"}
+               if k not in exclude_keys and not k.startswith("feat")}
         if self.device.type != "cuda":
             return {k: v.numpy() for k, v in sel.items()}
         host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
@@ -336,6 +347,64 @@ class Inferencer:
                 if write is not None:
                     write.result()
         return results
+
+
+class TwoStageInferencer(Inferencer):
+    """Two-stage inpainting served as Inferencer serves one model: stage 0
+    predicts the pathology mask, stage 1 the task outputs from the masked
+    input conditioned on it, then the processors (stage 0's sigmoid kept)
+    and `postprocess` (the label map through K2).
+
+    pathol_ckpt / task_ckpt: a checkpoint directory of the port's
+    two-stage training (the run's ckp/ root, whose newest step checkpoint
+    is read, or one ckpt_* directory; each stage takes its own part), or
+    each stage's `.pth` / `.pt` state dict; without one a stage's weights
+    are random, from seed 0."""
+
+    def __init__(self, cfg, pathol_ckpt=None, task_ckpt=None,
+                 compute_dtype=torch.float32, exact: bool = True,
+                 device=None):
+        self._ckpts = {"pathol": pathol_ckpt, "task": task_ckpt}
+        super().__init__(cfg, None, compute_dtype, exact, device)
+
+    def _build(self, cfg):
+        return build_inpaint_model(cfg, device=self.device)
+
+    def _load(self, ckpt_path):
+        del ckpt_path
+        for stage, path in self._ckpts.items():
+            if not path:
+                continue
+            part = getattr(self.model, stage)
+            path = str(path)
+            if path.endswith((".pth", ".pt")):
+                load_pth(part, path)
+                continue
+            if os.path.isdir(path) and not is_checkpoint_dir(path):
+                path = latest_checkpoint(path) or path
+            if not is_checkpoint_dir(path):
+                raise FileNotFoundError(
+                    f"{path}: no checkpoint of the port's two-stage training "
+                    "and no .pth / .pt file")
+            state = torch.load(os.path.join(path, MODEL_FILE),
+                               map_location=self.device, weights_only=True)
+            part.load_state_dict({k[len(stage) + 1:]: v
+                                  for k, v in state.items()
+                                  if k.startswith(stage + ".")}, strict=True)
+
+    @torch.inference_mode()
+    def evaluate_image(self, inputs, feature_only: bool = False,
+                       run_postprocess: bool = True, keep_feat: bool = True):
+        """As Inferencer.evaluate_image; feature_only returns the last
+        feature level of each stage, (stage 0's, stage 1's)."""
+        if not feature_only:
+            return super().evaluate_image(inputs, False, run_postprocess,
+                                          keep_feat)
+        x = self._as_input(inputs)
+        if x.dim() == 3:
+            x = x[None, ..., None]
+        out = self._forward(x)
+        return out["feat_pathol"][-1], out["feat_task"][-1]
 
 
 # The deformed-atlas source; the reference ships it as files/gca.mgz.

@@ -1,10 +1,16 @@
-from .build import (Joiner, apply_processors, build_backbone, build_model,
-                    postprocess, process_args)
-from .heads import ConvBlock, TaskHead
+from .build import (Joiner, SepJoiner, TwoStage, apply_processors,
+                    build_backbone, build_conditioned_model,
+                    build_critic_from_cfg, build_inpaint_model, build_model,
+                    build_pathol_critic, implicit_pathol_outputs, postprocess,
+                    process_args, process_outputs, twostage_forward)
+from .heads import ConvBlock, DepHead, TaskHead
 from .params_io import from_jax_params, load_pth
-from .unet3d import UNet3D, feature_maps
+from .unet3d import UNet2D, UNet3D, UNet3DSep, feature_maps
 
-__all__ = ["Joiner", "apply_processors", "build_backbone", "build_model",
-           "postprocess", "process_args", "ConvBlock", "TaskHead",
-           "from_jax_params", "load_pth",
-           "UNet3D", "feature_maps"]
+__all__ = ["Joiner", "SepJoiner", "TwoStage", "apply_processors",
+           "build_backbone", "build_conditioned_model",
+           "build_critic_from_cfg", "build_inpaint_model", "build_model",
+           "build_pathol_critic", "implicit_pathol_outputs", "postprocess",
+           "process_args", "process_outputs", "twostage_forward",
+           "ConvBlock", "DepHead", "TaskHead", "from_jax_params", "load_pth",
+           "UNet2D", "UNet3D", "UNet3DSep", "feature_maps"]

@@ -1,11 +1,15 @@
 """Weights between the JAX package, checkpoint files and the port.
 
-`from_jax_params` turns a flax parameter tree of brainfm_tpu's Joiner
-(UNet3D backbone + TaskHead; numpy leaves) into a state dict of the port's
-Joiner. Its keys are the reference's state-dict names, the ones
-brainfm_tpu/models/torch_import.py::torch_to_flax_params parses, so the
-two functions are inverses. Conv kernels go (kd,kh,kw,cin,cout) ->
-(cout,cin,kd,kh,kw); dtypes are kept.
+`from_jax_params` turns a flax parameter tree of brainfm_tpu's models
+(numpy leaves) into a state dict of the port's: the Joiner (UNet3D or
+UNet2D backbone + TaskHead, with the pooled age head), the SepJoiner
+(`decoders_normal` / `decoders_pathol`, `head_normal` / `head_pathol`),
+the critic (a Joiner) and the two-stage pair ({'pathol': ..., 'task':
+...} -> `pathol.*`, `task.*`). Its keys are the reference's state-dict
+names, the ones brainfm_tpu/models/torch_import.py::torch_to_flax_params
+parses, so the two functions are inverses on the Joiner. Conv kernels go
+(kd,kh,kw,cin,cout) -> (cout,cin,kd,kh,kw) (2-D: (kh,kw,cin,cout) ->
+(cout,cin,kh,kw)), Dense kernels (in,out) -> (out,in); dtypes are kept.
 
 `from_jax_opt_state` turns the JAX package's optimizer state (optax Adam,
 AdamW, SGD or LARS; numpy leaves) into the state dict of the port's
@@ -37,16 +41,29 @@ def _flatten(tree, prefix=()):
         yield prefix, tree
 
 
+_HEAD = r"(head|head_normal|head_pathol)"
+# flax path pattern -> reference key format; the last group is the leaf
+_KEYS = (
+    (r"backbone/encoders/encoder(\d+)/(SingleConv[12])/(.*)",
+     "backbone.encoders.{0}.basic_module.{1}.{2}"),
+    (r"backbone/decoders(|_normal|_pathol)/decoder\1(\d+)/(SingleConv[12])"
+     r"/(.*)", "backbone.decoders{0}.{1}.basic_module.{2}.{3}"),
+    (_HEAD + r"/layer(\d+)/(main/.*)", "{0}.layers.{1}.{2}"),
+    (_HEAD + r"/(final_conv_\w+)/(.*)", "{0}.{1}.{2}"),
+    # the scalar head's two ConvBlocks sit at pool_layers 1 and 3, after
+    # their max-pools
+    (_HEAD + r"/pool_conv1_\w+/(main/.*)", "{0}.pool_layers.1.{1}"),
+    (_HEAD + r"/pool_conv2_\w+/(main/.*)", "{0}.pool_layers.3.{1}"),
+    (_HEAD + r"/(final_linear[123]_\w+)/(.*)", "{0}.{1}.{2}"))
+# kernel layouts: flax -> PyTorch, by rank
+_KERNEL_AXES = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+STAGES = ("pathol", "task")
+
+
 def _torch_key(path):
     """flax path -> reference state-dict key."""
     p = "/".join(path)
-    for pat, fmt in (
-            (r"backbone/encoders/encoder(\d+)/(SingleConv[12])/(.*)",
-             "backbone.encoders.{0}.basic_module.{1}.{2}"),
-            (r"backbone/decoders/decoder(\d+)/(SingleConv[12])/(.*)",
-             "backbone.decoders.{0}.basic_module.{1}.{2}"),
-            (r"head/layer(\d+)/(main/.*)", "head.layers.{0}.{1}"),
-            (r"head/(final_conv_\w+)/(.*)", "head.{0}.{1}")):
+    for pat, fmt in _KEYS:
         m = re.fullmatch(pat, p)
         if m:
             *lead, leaf = m.groups()
@@ -57,13 +74,18 @@ def _torch_key(path):
 
 
 def from_jax_params(params) -> dict:
-    """flax params ({'params': tree} or the tree) -> state dict."""
+    """flax params ({'params': tree} or the tree) -> state dict. A
+    two-stage tree {'pathol': ..., 'task': ...} gives `pathol.*` and
+    `task.*` keys, those of the port's TwoStage."""
     tree = params.get("params", params)
+    if set(tree) == set(STAGES):
+        return {f"{stage}.{k}": v for stage in STAGES
+                for k, v in from_jax_params(tree[stage]).items()}
     sd = {}
     for path, leaf in _flatten(tree):
         a = np.asarray(leaf)
         if path[-1] == "kernel":
-            a = np.transpose(a, (4, 3, 0, 1, 2))
+            a = np.transpose(a, _KERNEL_AXES[a.ndim])
         sd[_torch_key(path)] = torch.from_numpy(np.array(a))  # a writable copy
     return sd
 
@@ -84,7 +106,8 @@ def _find(state, fields):
 
 def from_jax_opt_state(opt_state, model, optimizer) -> dict:
     """optax state -> `optimizer.state_dict()` of the port's optimizer over
-    `model.parameters()`, in the port's parameter order. Adam and AdamW
+    `model.parameters()`, in the port's parameter order (a TwoStage's:
+    stage 0's, then stage 1's). Adam and AdamW
     (ScaleByAdamState: count, mu, nu) give `step`, `exp_avg` and
     `exp_avg_sq`; SGD and LARS (TraceState: trace) give
     `momentum_buffer`. The param_groups are the optimizer's own."""
@@ -110,18 +133,24 @@ def from_jax_opt_state(opt_state, model, optimizer) -> dict:
     return {"state": state, "param_groups": sd["param_groups"]}
 
 
-def load_pth(model, path: str):
-    """Load a `.pth` / `.pt` checkpoint into the Joiner `model` (parity:
+def read_state_dict(path: str):
+    """A `.pth` / `.pt` checkpoint as (state dict, bare) (parity:
     torch_import.py::load_torch_state_dict and its key handling): a
-    `"model"` entry is unwrapped, a `module.` prefix (DataParallel) is
-    stripped, and a bare backbone (UNet3D keys without `backbone.`) loads
-    into `model.backbone`. Loading is strict. The file is read with
-    `weights_only=True`: tensors and plain containers only, no pickled
-    code. Returns the model."""
+    `"model"` entry is unwrapped and a `module.` prefix (DataParallel)
+    stripped; `bare` when it holds a backbone alone (UNet keys without
+    `backbone.`). The file is read with `weights_only=True`: tensors and
+    plain containers only, no pickled code."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     state = {k.removeprefix("module."): v for k, v in state.items()}
     bare = (not any(k.startswith("backbone.") for k in state)
             and any(k.startswith(("encoders.", "decoders")) for k in state))
+    return state, bare
+
+
+def load_pth(model, path: str):
+    """Load a `.pth` / `.pt` checkpoint into the joiner `model`, strictly;
+    a bare backbone loads into `model.backbone`. Returns the model."""
+    state, bare = read_state_dict(path)
     (model.backbone if bare else model).load_state_dict(state, strict=True)
     return model

@@ -3,9 +3,10 @@
 Geometric f_maps progression, `layer_order`-driven blocks (default 'gcl' =
 GroupNorm -> Conv -> LeakyReLU(0.01), bias-free convs when normalized),
 the DoubleConv encoder halving rule, max-pool downsampling, nearest
-upsample + concat decoding, and `get_feature` returning every decoder
-level. Module and parameter names are the reference's, so a state dict
-loads by name (models/params_io.py).
+upsample + concat decoding, `get_feature` returning every decoder level,
+the shared-encoder / dual-decoder `UNet3DSep` and the 2-D `UNet2D`
+(`is_3d=False` through every block). Module and parameter names are the
+reference's, so a state dict loads by name (models/params_io.py).
 
 The JAX package's TPU workarounds are not ported; their plain forms are,
 which tests/test_phase_upconv.py proves equal: `_phase_upconv` /
@@ -42,7 +43,7 @@ class SingleConv(nn.Module):
     """One `layer_order` unit, e.g. 'gcl': GroupNorm(in) -> Conv -> LeakyReLU."""
 
     def __init__(self, in_channels, out_channels, order="gcl", num_groups=8,
-                 kernel_size=3):
+                 kernel_size=3, is_3d=True):
         super().__init__()
         if "c" not in order:
             raise ValueError(f"layer order {order!r} has no conv")
@@ -53,9 +54,10 @@ class SingleConv(nn.Module):
                 self.groupnorm = nn.GroupNorm(_num_groups(ch, num_groups), ch,
                                               eps=1e-5)
             elif c == "c":
-                self.conv = nn.Conv3d(ch, out_channels, kernel_size,
-                                      padding=kernel_size // 2,
-                                      bias="g" not in order)
+                conv = nn.Conv3d if is_3d else nn.Conv2d
+                self.conv = conv(ch, out_channels, kernel_size,
+                                 padding=kernel_size // 2,
+                                 bias="g" not in order)
                 ch = out_channels
             elif c not in "lre":
                 raise ValueError(f"unsupported layer type {c!r}")
@@ -106,15 +108,15 @@ class DoubleConv(nn.Module):
     gradients recorded, the block runs under activation checkpointing."""
 
     def __init__(self, in_channels, out_channels, encoder, order="gcl",
-                 num_groups=8, remat=False):
+                 num_groups=8, remat=False, is_3d=True):
         super().__init__()
         self.remat = remat_mode(remat)
         conv1_out = (max(out_channels // 2, in_channels) if encoder
                      else out_channels)
         self.SingleConv1 = SingleConv(in_channels, conv1_out, order,
-                                      num_groups)
+                                      num_groups, is_3d=is_3d)
         self.SingleConv2 = SingleConv(conv1_out, out_channels, order,
-                                      num_groups)
+                                      num_groups, is_3d=is_3d)
 
     def _block(self, x):
         return self.SingleConv2(self.SingleConv1(x))
@@ -129,15 +131,16 @@ class DoubleConv(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, in_channels, out_channels, pool, order, num_groups,
-                 remat=False):
+                 remat=False, is_3d=True):
         super().__init__()
-        self.pool = pool
+        self.pool = (F.max_pool3d if is_3d else F.max_pool2d) if pool \
+            else None
         self.basic_module = DoubleConv(in_channels, out_channels, True, order,
-                                       num_groups, remat)
+                                       num_groups, remat, is_3d)
 
     def forward(self, x):
-        if self.pool:
-            x = F.max_pool3d(x, 2)
+        if self.pool is not None:
+            x = self.pool(x, 2)
         return self.basic_module(x)
 
 
@@ -154,46 +157,104 @@ def _nearest_upsample_to(x, target_spatial):
 
 class Decoder(nn.Module):
     def __init__(self, in_channels, out_channels, order, num_groups,
-                 remat=False):
+                 remat=False, is_3d=True):
         super().__init__()
         self.basic_module = DoubleConv(in_channels, out_channels, False, order,
-                                       num_groups, remat)
+                                       num_groups, remat, is_3d)
 
     def forward(self, enc, x):
         x = _nearest_upsample_to(x, enc.shape[2:])
         return self.basic_module(torch.cat([enc, x], dim=1))
 
 
+def _decoders(fm, order, num_groups, remat, is_3d):
+    rev = fm[::-1]
+    return nn.ModuleList(
+        Decoder(rev[i + 1] + rev[i], rev[i + 1], order, num_groups, remat,
+                is_3d) for i in range(len(fm) - 1))
+
+
+def _decode(decoders, enc_feats, is_unit_vector):
+    """[bottleneck, decoder level 1, ..., final] from the encoder features
+    (deepest first); the final level unit-normalized over channels when
+    `is_unit_vector`."""
+    x = enc_feats[0]
+    feats = [x]
+    for dec, skip in zip(decoders, enc_feats[1:]):
+        x = dec(skip, x)
+        feats.append(x)
+    if is_unit_vector:
+        norm = torch.linalg.vector_norm(feats[-1], dim=1, keepdim=True)
+        feats[-1] = feats[-1] / norm.clamp(min=1e-12)
+    return feats
+
+
+def _encoders(in_channels, fm, order, num_groups, remat, is_3d):
+    return nn.ModuleList(
+        Encoder(in_channels if i == 0 else fm[i - 1], fm[i], i > 0, order,
+                num_groups, remat, is_3d) for i in range(len(fm)))
+
+
+def _encode(encoders, x):
+    """Every encoder level's output, deepest first."""
+    enc_feats = []
+    for enc in encoders:
+        x = enc(x)
+        enc_feats.insert(0, x)
+    return enc_feats
+
+
 class UNet3D(nn.Module):
     def __init__(self, in_channels=1, f_maps=64, num_levels=5,
                  layer_order="gcl", num_groups=8, is_unit_vector=False,
-                 remat=False):
+                 remat=False, is_3d=True):
         super().__init__()
         fm = feature_maps(f_maps, num_levels)
         self.is_unit_vector = is_unit_vector
-        self.encoders = nn.ModuleList(
-            Encoder(in_channels if i == 0 else fm[i - 1], fm[i], i > 0,
-                    layer_order, num_groups, remat) for i in range(num_levels))
-        rev = fm[::-1]
-        self.decoders = nn.ModuleList(
-            Decoder(rev[i + 1] + rev[i], rev[i + 1], layer_order, num_groups,
-                    remat)
-            for i in range(num_levels - 1))
+        self.encoders = _encoders(in_channels, fm, layer_order, num_groups,
+                                  remat, is_3d)
+        self.decoders = _decoders(fm, layer_order, num_groups, remat, is_3d)
 
     def forward(self, x):
         return self.get_feature(x)[-1]
 
     def get_feature(self, x):
         """[bottleneck, decoder level 1, ..., final], NCDHW."""
-        enc_feats = []
-        for enc in self.encoders:
-            x = enc(x)
-            enc_feats.insert(0, x)
-        feats = [enc_feats[0]]
-        for dec, skip in zip(self.decoders, enc_feats[1:]):
-            x = dec(skip, x)
-            feats.append(x)
-        if self.is_unit_vector:
-            norm = torch.linalg.vector_norm(feats[-1], dim=1, keepdim=True)
-            feats[-1] = feats[-1] / norm.clamp(min=1e-12)
-        return feats
+        return _decode(self.decoders, _encode(self.encoders, x),
+                       self.is_unit_vector)
+
+
+class UNet2D(UNet3D):
+    """UNet3D with 2-D convolutions and pooling, on (N, C, H, W)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs, is_3d=False)
+
+
+class UNet3DSep(nn.Module):
+    """Shared encoder, normal and pathology decoders. get_feature returns
+    {'normal': [...], 'pathology': [...]}, each list as UNet3D's, the two
+    sharing the bottleneck."""
+
+    def __init__(self, in_channels=1, f_maps=64, num_levels=5,
+                 layer_order="gcl", num_groups=8, is_unit_vector=False,
+                 remat=False):
+        super().__init__()
+        fm = feature_maps(f_maps, num_levels)
+        self.is_unit_vector = is_unit_vector
+        self.encoders = _encoders(in_channels, fm, layer_order, num_groups,
+                                  remat, True)
+        self.decoders_normal = _decoders(fm, layer_order, num_groups, remat,
+                                         True)
+        self.decoders_pathol = _decoders(fm, layer_order, num_groups, remat,
+                                         True)
+
+    def forward(self, x):
+        return {k: v[-1] for k, v in self.get_feature(x).items()}
+
+    def get_feature(self, x):
+        enc_feats = _encode(self.encoders, x)
+        return {"normal": _decode(self.decoders_normal, enc_feats,
+                                  self.is_unit_vector),
+                "pathology": _decode(self.decoders_pathol, enc_feats,
+                                     self.is_unit_vector)}

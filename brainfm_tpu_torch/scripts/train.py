@@ -18,8 +18,12 @@ pathology_probs), the subjects of each dataset listed in
 <split_root>/<split>.txt; without a data root on disk each dataset holds
 one procedural debug subject. --eval_only --resume CKPT_DIR scores the
 fixed-seed stream validation set with the checkpoint's weights instead of
-training. Runs on CUDA unless --device says otherwise. --mesh and --fsdp
-(the multi-GPU slice) and two-stage backbones raise NotImplementedError.
+training (with the frozen critic when losses.implicit_pathol is on). An
+'a+b' backbone (twostage.yaml) trains the two-stage pair of
+models/build.py::build_inpaint_model; --eval_only refuses it, as the JAX
+script does (infer/api.py::TwoStageInferencer serves it). Runs on CUDA
+unless --device says otherwise. --mesh and --fsdp (the multi-GPU slice,
+ROADMAP Queue 1 item 5) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch
 
 from ..config import load_config, merge_missing
 from ..infer.api import Inferencer
-from ..models.build import build_model
+from ..models.build import (build_critic_from_cfg, build_inpaint_model,
+                            build_model)
 from ..models.criterion import make_criterion
 from ..synth.datasets import build_datasets
 from ..synth.engine import SubjectBank
@@ -142,7 +147,7 @@ def main(argv=None):
         if flag:
             raise NotImplementedError(
                 f"{what} is not ported yet (the multi-GPU slice, ROADMAP "
-                "Queue 1 item 6)")
+                "Queue 1 item 5)")
 
     train_cfg = train_config(args.gen_cfg, args.train_cfg)
     if args.remat is not None:
@@ -158,12 +163,15 @@ def main(argv=None):
         train_cfg.n_epochs = 1
     if args.no_amp:
         train_cfg.amp = False
-    if "+" in str(train_cfg.get("backbone") or ""):
-        raise NotImplementedError("two-stage backbones are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
 
     torch.manual_seed(0)
-    cfg, model = build_model(train_cfg, device=args.device)
+    # an 'a+b' backbone (twostage.yaml) trains two-stage: the stage-0
+    # pathology predictor, then the masked, mask-conditioned task model
+    twostage = "+" in str(train_cfg.get("backbone") or "")
+    if twostage:
+        cfg, model = build_inpaint_model(train_cfg, device=args.device)
+    else:
+        cfg, model = build_model(train_cfg, device=args.device)
     _, weight_dict, loss_fn = make_criterion(cfg)
     # a timestamped run directory under outs/, as the JAX script's
     out_dir = args.out_dir or os.path.join(
@@ -178,6 +186,9 @@ def main(argv=None):
           f"(ingest {time.perf_counter() - t0:.3f} s)")
     itr = 2 if args.debug else args.itr_per_epoch
     batch_items = args.batch_items or int(cfg.get("batch_size") or 1)
+    if (args.eval_only or cfg.get("eval_only")) and twostage:
+        ap.error("--eval_only is not wired for two-stage configs: use "
+                 "infer.api.TwoStageInferencer")
     if args.eval_only or cfg.get("eval_only"):
         if not args.resume:
             ap.error("--eval_only requires --resume <checkpoint>: scoring "
@@ -189,7 +200,10 @@ def main(argv=None):
                                          batch_items=batch_items)
         print("val set spans datasets:", sorted(set(vnames)))
         inf = Inferencer(cfg, ckpt_path=args.resume, device=dev)
-        ev = make_eval_step(inf.model, cfg, weight_dict, loss_fn)
+        # train()'s critic, so the scores compare with best_val_stats
+        critic, ckey = build_critic_from_cfg(cfg, device=dev)
+        ev = make_eval_step(inf.model, cfg, weight_dict, loss_fn,
+                            critic=critic, critic_image_key=ckey)
         for i, b in enumerate(vb):
             losses = ev(inf.model, b)
             print(f"val[{i}]:",
@@ -197,7 +211,8 @@ def main(argv=None):
         return 0
     state = train(cfg, model, weight_dict, loss_fn, None, out_dir,
                   itr_per_epoch=itr, resume=args.resume, stream=stream,
-                  batch_items=batch_items)
+                  batch_items=batch_items,
+                  twostage_models=model if twostage else None)
     print("training done; final step", state.step)
     if dev.type == "cuda":
         print(f"device memory peak: "

@@ -302,12 +302,12 @@ class SynthDataset:
     def get_group(self, idxs):
         raise NotImplementedError(
             "SynthDataset.get_group (grouped per-rank synthesis) belongs to "
-            "the multi-GPU slice, ROADMAP Queue 1 item 6")
+            "the multi-GPU slice, ROADMAP Queue 1 item 5")
 
     def get_batch_sharded(self, mesh, idxs, keys, axes=("data",)):
         raise NotImplementedError(
             "SynthDataset.get_batch_sharded belongs to the multi-GPU slice, "
-            "ROADMAP Queue 1 item 6")
+            "ROADMAP Queue 1 item 5")
 
 
 class ConcatStream:

@@ -9,10 +9,12 @@ multi-dataset stream (synth/datasets.py::ConcatStream). Randomness is
 drawn per epoch from (seed, epoch): a torch generator for the bank's items
 (the stream's: one per item, from (seed, epoch, item)) and numpy generators
 for the host draws, all made anew each epoch, so a run resumed at an epoch
-boundary draws what an uninterrupted one draws.
+boundary draws what an uninterrupted one draws. With
+`losses.implicit_pathol` the frozen critic scores every step and
+validation batch; `twostage_models` trains the two-stage pair.
 
-Not ported here: the multi-GPU mesh and FSDP, two-stage training and the
-periodic visualizer; each raises NotImplementedError.
+Not ported here: the multi-GPU mesh and FSDP (ROADMAP Queue 1 item 5) and
+the periodic visualizer (item 4); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from .checkpoint import (finalize_pending, load_checkpoint, read_extra,
                          save_best_checkpoint, save_checkpoint)
 from .schedules import build_schedules
 from .step import (TrainState, amp_enabled, batch_losses, build_optimizer,
-                   make_train_step, split_samples)
+                   make_train_step, make_twostage_train_step, split_samples)
 
 
 def make_batch(generators, subject, scfg, tasks, input_mode, knobs):
@@ -75,31 +77,45 @@ def apply_condition(batch, condition: str | None):
 
 
 def make_eval_step(model, cfg, weight_dict, loss_fn, sample_accum: int = 1,
-                   amp: bool | None = None):
+                   amp: bool | None = None, critic=None,
+                   critic_image_key: str = "T1"):
     """Validation step `step(model, batch) -> losses` (with 'loss_total'):
-    forward + criterion under torch.no_grad. `sample_accum`: the S-sample
-    stack in sequential chunks whose losses are averaged (exact, as the
-    train step's; skipped when it does not divide S)."""
+    forward + criterion under torch.no_grad, with the train step's frozen
+    critic when one is given, so validation scores what training does.
+    `sample_accum`: the S-sample stack in sequential chunks whose losses
+    are averaged (exact, as the train step's; skipped when it does not
+    divide S)."""
     del model   # the caller passes the model to each call
     amp = amp_enabled(cfg, amp)
     k = int(sample_accum)
+
+    def losses_of(model, batch):
+        return batch_losses(model, cfg, loss_fn, batch, amp, critic,
+                            critic_image_key)
 
     @torch.no_grad()
     def step(model, batch):
         S = batch["samples"]["input"].shape[1]
         if k > 1 and S % k == 0 and S > 1:
-            parts = [batch_losses(model, cfg, loss_fn,
-                                  split_samples(batch, i, k), amp)
+            parts = [losses_of(model, split_samples(batch, i, k))
                      for i in range(k)]
             losses = {kk: torch.mean(torch.stack([p[kk] for p in parts]))
                       for kk in parts[0]}
         else:
-            losses = batch_losses(model, cfg, loss_fn, batch, amp)
+            losses = losses_of(model, batch)
         losses["loss_total"] = torch.as_tensor(
             weighted_total(losses, weight_dict))
         return losses
 
     return step
+
+
+def make_twostage_eval_step(model, cfg, weight_dict, loss_fn,
+                            amp: bool | None = None):
+    """Validation twin of make_twostage_train_step over a TwoStage
+    `model`: the chained forward, stage 0's sigmoid kept, the criterion,
+    no gradients; `step(model, batch) -> losses`."""
+    return make_eval_step(model, cfg, weight_dict, loss_fn, amp=amp)
 
 
 def _to(batch, dev):
@@ -203,6 +219,15 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     """Run the training loop on the model's device. `bank`: SubjectBank;
     `cfg`: the processed trainer config (with .generator etc.).
 
+    `twostage_models`: the two-stage pair (the TwoStage of
+    models/build.py::build_inpaint_model), trained in place of `model`
+    under one optimizer with
+    cfg.train_stage0 (default true; false detaches stage 0, whose
+    parameters still take AdamW's decay). cfg.condition and
+    losses.implicit_pathol are refused with it, as in the JAX package.
+    With losses.implicit_pathol the frozen critic
+    (build_critic_from_cfg) scores every step and validation batch.
+
     `stream`: a synth/datasets.py ConcatStream (the multi-dataset
     registry: per-dataset banks, modality roulettes and probability
     mixing), in place of the bank's subject sampling; `bank` may then be
@@ -216,18 +241,30 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     JSON line per epoch), train.log and the loss curve. Returns the
     TrainState."""
     if mesh is not None or fsdp:
-        _refuse("mesh= / fsdp=True", "the multi-GPU slice, Queue 1 item 6")
-    if twostage_models is not None:
-        _refuse("twostage_models= (two-stage training)",
-                "the pathology models, Queue 1 item 6")
+        _refuse("mesh= / fsdp=True",
+                "the multi-GPU slice, ROADMAP Queue 1 item 5")
     if vis_itr:
         _refuse("vis_itr > 0 (the training visualizer)",
-                "utils/visualizer.py, Queue 1 item 6")
-    build_critic_from_cfg(cfg)   # raises when losses.implicit_pathol is on
+                "utils/visualizer.py, ROADMAP Queue 1 item 4")
+    losses_cfg = cfg.losses if getattr(cfg, "losses", None) else {}
+    if twostage_models is not None:
+        if losses_cfg.get("implicit_pathol"):
+            raise ValueError("losses.implicit_pathol is not supported with "
+                             "two-stage training (the reference's twostage "
+                             "engine has no PatholSeg critic either)")
+        if cfg.get("condition"):
+            raise ValueError("cfg.condition is not supported with two-stage "
+                             "training: stage-1 is conditioned on stage-0's "
+                             "predicted mask internally")
+        model = twostage_models
 
     os.makedirs(out_dir, exist_ok=True)
     logger = setup_logging(os.path.join(out_dir, "train.log"))
     dev = next(model.parameters()).device
+    critic, critic_key = build_critic_from_cfg(cfg, device=dev)
+    if critic is not None:
+        critic.to(next(model.parameters()).dtype)
+        logger.info(f"implicit-pathology critic on (scores '{critic_key}')")
     scfg = SynthStatic.from_cfg(cfg)
     tasks = tuple(cfg.tasks)
     optimizer = build_optimizer(cfg, model.parameters())
@@ -254,8 +291,16 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     if sample_accum > 1:
         logger.info(f"gradient accumulation over the sample stack: "
                     f"{sample_accum} microbatches")
-    step_fn = make_train_step(model, cfg, weight_dict, loss_fn, optimizer,
-                              sample_accum=sample_accum)
+    if twostage_models is not None:
+        step_fn = make_twostage_train_step(
+            model, cfg, weight_dict, loss_fn, optimizer,
+            train_stage0=bool(cfg.get("train_stage0", True)),
+            sample_accum=sample_accum)
+    else:
+        step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
+                                  optimizer, sample_accum=sample_accum,
+                                  critic=critic,
+                                  critic_image_key=critic_key)
     knobs = {m: knobs_from_cfg(cfg, scfg, m) for m in set(input_modes)}
     sampler = (WeightedSubjectSampler([len(bank)], seed=seed)
                if stream is None else None)
@@ -323,8 +368,12 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
                         device=dev)
                 val_batches = [apply_condition(b, cfg.get("condition"))
                                for b in val_batches]
-                eval_step = make_eval_step(model, cfg, weight_dict, loss_fn,
-                                           sample_accum=sample_accum)
+                eval_step = (
+                    make_twostage_eval_step(model, cfg, weight_dict, loss_fn)
+                    if twostage_models is not None else
+                    make_eval_step(model, cfg, weight_dict, loss_fn,
+                                   sample_accum=sample_accum, critic=critic,
+                                   critic_image_key=critic_key))
             acc: dict = {}
             for vb in val_batches:
                 vl = eval_step(state.model, _to(vb, dev))

@@ -1,9 +1,11 @@
 """The training step (port of brainfm_tpu/train/step.py).
 
-Forward over the intra-subject sample stack, output processors, weighted
-multi-task criterion, non-finite skip, gradient clipping and an optimizer
-with its learning rate and weight decay set per step, as the reference's
-`train_one_epoch` body does.
+Forward over the intra-subject sample stack, output processors, the
+frozen implicit-pathology critic when one is given, weighted multi-task
+criterion, non-finite skip, gradient clipping and an optimizer with its
+learning rate and weight decay set per step, as the reference's
+`train_one_epoch` body does. The two-stage step is the same step over a
+TwoStage model (models/build.py), both stages under one optimizer.
 
 PyTorch runs eagerly, so the JAX package's jit, donation and `lax.scan`
 have no counterpart: a step is one backward (or one per microbatch) and an
@@ -22,7 +24,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..models.build import apply_processors
+from ..models.build import implicit_pathol_outputs, process_outputs
 from ..models.criterion import weighted_total
 
 
@@ -137,10 +139,20 @@ def amp_enabled(cfg, amp=None) -> bool:
     return bool(cfg.get("amp", True))
 
 
-def batch_losses(model, cfg, loss_fn, batch, amp: bool):
+def _each(v, fn):
+    """fn on a tensor, or on each tensor of a feature list."""
+    return [fn(f) for f in v] if isinstance(v, list) else fn(v)
+
+
+def batch_losses(model, cfg, loss_fn, batch, amp: bool, critic=None,
+                 critic_image_key: str = "T1", detach_stage0: bool = False):
     """Per-item losses of a batch, averaged over its B items. The model
     sees all B x S samples as one batch: GroupNorm is per sample, so this
-    equals a forward per item."""
+    equals a forward per item. `critic`: the frozen implicit-pathology
+    critic (models/build.py::build_critic_from_cfg), run per item on the
+    predicted and the target image of `critic_image_key`, in fp32 outside
+    the autocast. `detach_stage0`: a TwoStage model's stage 0 gets no
+    gradient."""
     samples, targets = batch["samples"], batch["targets"]
     cond = batch.get("cond")
     x = samples["input"]
@@ -149,26 +161,27 @@ def batch_losses(model, cfg, loss_fn, batch, amp: bool):
     def fold(a):
         return a.reshape(B * S, *a.shape[2:])
 
+    kw = {"detach_stage0": True} if detach_stage0 else {}
     with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=amp):
-        out = model(fold(x), cond=None if cond is None else fold(cond))
+        out = model(fold(x), cond=None if cond is None else fold(cond), **kw)
     if "contrastive" not in cfg.tasks:
         # only the contrastive loss reads the features; dropping them
         # frees the fp32 unit-normalized last level, which nothing saves
-        out.pop("feat", None)
+        out = {k: v for k, v in out.items() if not k.startswith("feat")}
     if amp:
-        out = {k: ([f.float() for f in v] if k == "feat" else v.float())
-               for k, v in out.items()}
-    out = apply_processors(out, cfg)
+        out = {k: _each(v, lambda t: t.float()) for k, v in out.items()}
+    out = process_outputs(model, out, cfg)
 
     def item(a, b):
         return a.reshape(B, S, *a.shape[1:])[b]
 
     per = []
     for b in range(B):
-        ob = {k: ([item(f, b) for f in v] if k == "feat" else item(v, b))
-              for k, v in out.items()}
-        per.append(loss_fn(ob, {k: v[b] for k, v in targets.items()},
-                           {k: v[b] for k, v in samples.items()}))
+        ob = {k: _each(v, lambda t: item(t, b)) for k, v in out.items()}
+        tb = {k: v[b] for k, v in targets.items()}
+        if critic is not None:
+            ob = implicit_pathol_outputs(critic, ob, tb, critic_image_key)
+        per.append(loss_fn(ob, tb, {k: v[b] for k, v in samples.items()}))
     return {k: torch.mean(torch.stack([p[k] for p in per])) for k in per[0]}
 
 
@@ -222,7 +235,9 @@ def _finite_update(state: TrainState, total, losses, lr, wd, clip):
 
 
 def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
-                    sample_accum: int = 1, amp: bool | None = None):
+                    sample_accum: int = 1, amp: bool | None = None,
+                    critic=None, critic_image_key: str = "T1",
+                    train_stage0: bool = True):
     """Returns `step(state, batch, lr, wd) -> (state, metrics)`.
 
     batch: {'samples': {...(B, S, ...)...}, 'targets': {...(B, 1, ...)...},
@@ -230,14 +245,22 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
     sequential microbatches, gradients summed and divided by k: exact, as
     the criterion means per-sample losses and nothing in the model couples
     samples; peak activation memory drops to one microbatch's. `amp`: bf16
-    autocast around the model (default cfg.amp)."""
+    autocast around the model (default cfg.amp). `critic`: the frozen
+    implicit-pathology critic scoring `critic_image_key`, its losses
+    reaching the model through the predicted image only.
+    `train_stage0=False` (a TwoStage model): stage 0's output is detached,
+    so its parameters get zero gradients; they stay in the optimizer and
+    are stepped, as the JAX package's stop_gradient leaves them (AdamW's
+    decoupled decay and Adam's moments still move them)."""
     del model, optimizer   # the state carries both
     amp = amp_enabled(cfg, amp)
     clip = _clip_fn(cfg)
     k = int(sample_accum)
 
     def losses_and_total(model, batch):
-        losses = batch_losses(model, cfg, loss_fn, batch, amp)
+        losses = batch_losses(model, cfg, loss_fn, batch, amp, critic,
+                              critic_image_key,
+                              detach_stage0=not train_stage0)
         return weighted_total(losses, weight_dict), losses
 
     def step(state: TrainState, batch, lr, wd):
@@ -269,3 +292,15 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
         return _finite_update(state, total, losses, lr, wd, clip)
 
     return step
+
+
+def make_twostage_train_step(model, cfg, weight_dict, loss_fn: Callable,
+                             optimizer, train_stage0: bool = True,
+                             sample_accum: int = 1, amp: bool | None = None):
+    """The two-stage step over a TwoStage `model`: stage 0 predicts the
+    mask, stage 1 sees the masked input conditioned on it, both stages
+    under one optimizer; stage 0's sigmoid is kept, not squashed again by
+    the processors. make_train_step with `train_stage0`."""
+    return make_train_step(model, cfg, weight_dict, loss_fn, optimizer,
+                           sample_accum=sample_accum, amp=amp,
+                           train_stage0=train_stage0)

@@ -57,10 +57,27 @@ Phases, one JSON line each:
                shapes and from a lesion file, timed by part (shape or
                lesion warp, advection with its adaptive steps, the rest);
                then the flagship model trains a step on each.
+ 12. variants_reference - small models of the variants (the age head,
+               the sep decoders, the flagship with the frozen critic; f_maps
+               8, 3 levels, 32^3): one step's losses (fp32, fp64) and
+               gradients (fp64) on the GPU against the CPU.
+ 13. variants - each variant at full width through train() (VARIANT_ITR
+               steps, validation, checkpoints), then VARIANT_TIMED timed
+               iterations (item, step): joint_age.yaml with brain_id_age.yaml
+               (L6, S=4), sep.yaml (L5) on twostage.yaml's generator (S=2,
+               pathology), the flagship with losses.implicit_pathol and a
+               random-init critic; peak memory and launch counts per
+               variant, each at its memory setting (VARIANT_FIT).
+ 14. twostage_reference - a small two-stage pair's step (losses, fp64
+               gradients) and TwoStageInferencer's outputs, GPU against CPU.
+ 15. twostage - the training CLI on twostage.yaml with its generator over
+               the stream phase's data root (two UNet3D f_maps-64 L5,
+               160^3, S=2, bf16; TWOSTAGE_ITR iterations), TRAIN_TIMED
+               timed stream iterations, then TwoStageInferencer on the run's
+               checkpoint serving one procedural head at 220^3 in bf16.
 Then the elapsed seconds per phase, the `kernels` summary line (launches on
-the slice, serve, train, stream and pathology paths), the card's name and
-power limit, and the result line. Exits non-zero, printing no result, when
-a phase fails or no GPU is present.
+every path), the card's name and power limit, and the result line. Exits
+non-zero, printing no result, when a phase fails or no GPU is present.
 """
 
 from __future__ import annotations
@@ -85,9 +102,11 @@ import torch
 import torch.nn.functional as F
 
 from brainfm_tpu_torch import kernels
-from brainfm_tpu_torch.infer import (Inferencer, get_deformed_atlas,
-                                     prepare_image, tile_plan)
-from brainfm_tpu_torch.models import (apply_processors, build_model,
+from brainfm_tpu_torch.infer import (Inferencer, TwoStageInferencer,
+                                     get_deformed_atlas, prepare_image,
+                                     tile_plan)
+from brainfm_tpu_torch.models import (apply_processors, build_critic_from_cfg,
+                                      build_inpaint_model, build_model,
                                       process_args)
 from brainfm_tpu_torch.models.criterion import make_criterion, weighted_total
 from brainfm_tpu_torch.ops.interp import nearest3d, trilinear3d
@@ -103,7 +122,9 @@ from brainfm_tpu_torch.synth.batch import stack_items
 from brainfm_tpu_torch.synth.datasets import DATASET_SETUPS, build_datasets
 from brainfm_tpu_torch.train import (build_optimizer, build_schedules,
                                      load_checkpoint, make_batch,
-                                     make_train_step, save_checkpoint, train)
+                                     make_train_step,
+                                     make_twostage_train_step,
+                                     save_checkpoint, train)
 from brainfm_tpu_torch.train.step import TrainState, batch_losses
 from brainfm_tpu_torch.utils.nifti import load_nifti, save_nifti
 
@@ -156,6 +177,17 @@ FP32_GRAD_FACTOR = 4.0
 STREAM_EXTENT = (180, 180, 180)
 STREAM_ITR = 4
 PATHOLOGY_ITEMS = 4
+# the model variants and the two-stage pair: each one's memory setting
+# (remat, grad_accum_samples), the first of the order of
+# scripts/profile_torch_slice.py --variants (`fit_train`) that leaves 8 GB
+# of the card free; the iterations through train() and the CLI
+VARIANTS = ("joint_age", "sep", "critic")
+VARIANT_FIT = {"joint_age": ("save_convs", 1), "sep": ("save_convs", 1),
+               "critic": ("save_convs", 2)}
+TWOSTAGE_FIT = ("save_convs", 1)
+VARIANT_ITR = 2
+VARIANT_TIMED = 2
+TWOSTAGE_ITR = 4
 
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
@@ -1004,10 +1036,11 @@ def _rel_l2(a, b):
                  / max(float(torch.linalg.vector_norm(b)), 1e-30))
 
 
-def _loss_and_grads(model, cfg, weight_dict, loss_fn, batch):
-    """The losses and every parameter's gradient of one backward."""
+def _loss_and_grads(model, cfg, weight_dict, loss_fn, batch, **kw):
+    """The losses and every parameter's gradient of one backward (`kw`:
+    batch_losses' critic arguments)."""
     model.zero_grad(set_to_none=True)
-    losses = batch_losses(model, cfg, loss_fn, batch, amp=False)
+    losses = batch_losses(model, cfg, loss_fn, batch, amp=False, **kw)
     losses["loss_total"] = weighted_total(losses, weight_dict)
     losses["loss_total"].backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
@@ -1160,6 +1193,34 @@ STEP_LINE = re.compile(r"epoch (\d+) it (\d+)/\d+ lr (\S+) loss (\S+) "
                        r"skipped (\d+)")
 
 
+def _read_steps(out_dir):
+    with open(os.path.join(out_dir, "train.log")) as f:
+        return [{"epoch": int(m[1]), "it": int(m[2]), "lr": float(m[3]),
+                 "loss_total": float(m[4]), "skipped": int(m[5])}
+                for m in STEP_LINE.finditer(f.read())]
+
+
+def _timed_iterations(n, item, step):
+    """n iterations, each timed in two parts ended by a synchronize: the
+    item (`item()` -> batch) and the step (`step(batch)` -> metrics)."""
+    timed = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = item()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del batch
+        timed.append({"item_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3,
+                      "iter_ms": (t2 - t0) * 1e3,
+                      "loss_total": float(m["loss_total"]),
+                      "skipped": int(m["skipped"])})
+    return timed
+
+
 def run_train(dev, power, tmp, cfg=None, bank_shape=BANK):
     """The flagship configuration trained through train(): one epoch of
     TRAIN_ITR iterations (validation on one batch, the epoch and best
@@ -1191,10 +1252,7 @@ def run_train(dev, power, tmp, cfg=None, bank_shape=BANK):
     changed = sum(not torch.equal(init[k], v.cpu())
                   for k, v in model.state_dict().items())
     del init
-    with open(os.path.join(out_dir, "train.log")) as f:
-        steps = [{"epoch": int(m[1]), "it": int(m[2]), "lr": float(m[3]),
-                  "loss_total": float(m[4]), "skipped": int(m[5])}
-                 for m in STEP_LINE.finditer(f.read())]
+    steps = _read_steps(out_dir)
 
     scfg = SynthStatic.from_cfg(cfg)
     knobs = knobs_from_cfg(cfg, scfg, "synth")
@@ -1203,21 +1261,10 @@ def run_train(dev, power, tmp, cfg=None, bank_shape=BANK):
     lr_s, wd_s = build_schedules(cfg, TRAIN_ITR)
     step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
                               state.optimizer, sample_accum=TRAIN_ACCUM)
-    timed = []
-    for _ in range(TRAIN_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch = make_batch([gen], subj, scfg, cfg.tasks, "synth", knobs)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, m = step_fn(state, batch, float(lr_s[-1]), float(wd_s[-1]))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        del batch
-        timed.append({"item_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3,
-                      "iter_ms": (t2 - t0) * 1e3,
-                      "loss_total": float(m["loss_total"]),
-                      "skipped": int(m["skipped"])})
+    timed = _timed_iterations(
+        TRAIN_TIMED,
+        lambda: make_batch([gen], subj, scfg, cfg.tasks, "synth", knobs),
+        lambda b: step_fn(state, b, float(lr_s[-1]), float(wd_s[-1]))[1])
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1396,22 +1443,17 @@ def run_stream(dev, power, tmp):
     step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
                               state.optimizer, sample_accum=TRAIN_ACCUM)
     items = stream.epoch(0, TRAIN_TIMED, seed=1)
-    timed = []
-    for _ in range(TRAIN_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    names = []
+
+    def item():
         name, target, samples = next(items)
-        batch = stack_items([target], [samples])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, mt = step_fn(state, batch, 1e-4, 1e-2)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        del batch, target, samples
-        timed.append({"dataset": name, "item_ms": (t1 - t0) * 1e3,
-                      "step_ms": (t2 - t1) * 1e3, "iter_ms": (t2 - t0) * 1e3,
-                      "loss_total": float(mt["loss_total"]),
-                      "skipped": int(mt["skipped"])})
+        names.append(name)
+        return stack_items([target], [samples])
+
+    timed = _timed_iterations(TRAIN_TIMED, item,
+                              lambda b: step_fn(state, b, 1e-4, 1e-2)[1])
+    for t, name in zip(timed, names):
+        t["dataset"] = name
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1443,7 +1485,7 @@ def run_stream(dev, power, tmp):
           "launches": launches, "gpu": power})
     if bad:
         raise AssertionError(f"stream phase failed: {bad}")
-    return launches
+    return launches, root
 
 
 def run_pathology(dev, power):
@@ -1543,6 +1585,367 @@ def run_pathology(dev, power):
     return launches
 
 
+def variant_cfg(name):
+    """The shipped trainer configs of the model variants, at full width:
+    joint_age.yaml with brain_id_age.yaml (L6, 160^3, S=4), sep.yaml (L5)
+    on twostage.yaml's generator (T1, pathology, segmentation, 160^3,
+    S=2), the flagship with losses.implicit_pathol on (a random-init
+    critic: UNet3D f_maps 64, 5 levels), and the two-stage pair
+    (twostage.yaml with its generator: two UNet3D f_maps 64, 5 levels)."""
+    if name == "joint_age":
+        return train_script.train_config("brain_id_age", "joint_age")
+    if name == "sep":
+        return train_script.train_config("twostage", "sep")
+    if name == "twostage":
+        return train_script.train_config("twostage", "twostage")
+    cfg = flagship_cfg()
+    cfg.losses.implicit_pathol = True
+    return cfg
+
+
+def ref_variant_cfg(name):
+    """A variant cut for the reference phases, as train_ref_cfg: f_maps
+    8, 3 levels (the critic too), 32^3, fp32, SGD."""
+    cfg = variant_cfg(name)
+    cfg.f_maps, cfg.num_levels, cfg.task_f_maps = 8, 3, [8]
+    cfg.critic_f_maps, cfg.critic_num_levels = 8, 3
+    cfg.generator.size = [32, 32, 32]
+    cfg.optimizer, cfg.lr, cfg.amp = "sgd", 1e-2, False
+    return cfg
+
+
+def ref_variant_batch(cfg, S):
+    """ref_train_batch with an age and a pathology target."""
+    batch = ref_train_batch(cfg, S=S)
+    rng = np.random.default_rng(1)
+    size = tuple(cfg.generator.size)
+    batch["targets"]["age"] = torch.tensor([47.0])
+    batch["targets"]["pathology"] = torch.from_numpy(
+        (rng.random((1, 1, *size, 1)) < 0.2).astype(np.float32))
+    return batch
+
+
+def _reference_step(name, dev):
+    """One step of the small `name` model on the GPU and the CPU from the
+    same params, batch and (for the critic variant) frozen critic: the
+    relative errors of the losses at fp32 and fp64 and of each gradient
+    tensor at fp64 (relative L2), and whether the critic got gradients."""
+    build = build_inpaint_model if name == "twostage" else build_model
+    torch.manual_seed(0)
+    cfg, m = build(ref_variant_cfg(name), device="cpu")
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    critic, key = build_critic_from_cfg(cfg, device="cpu")
+    b32 = ref_variant_batch(cfg, S=cfg.generator.all_samples)
+    b64 = {k: {kk: vv.double() for kk, vv in v.items()}
+           for k, v in b32.items()}
+    runs = {"cpu32": (m, critic, b32),
+            "gpu32": (copy.deepcopy(m).to(dev), critic and copy.deepcopy(
+                critic).to(dev), _to_dev(b32, dev)),
+            "cpu64": (copy.deepcopy(m).double(), critic and copy.deepcopy(
+                critic).double(), b64),
+            "gpu64": (copy.deepcopy(m).double().to(dev), critic and
+                      copy.deepcopy(critic).double().to(dev),
+                      _to_dev(b64, dev))}
+    losses, grads = {}, {}
+    for k, (model, crit, batch) in runs.items():
+        losses[k], grads[k] = _loss_and_grads(
+            model, cfg, weight_dict, loss_fn, batch, critic=crit,
+            critic_image_key=key)
+
+    def loss_rel(a, b):
+        return {k: abs(losses[a][k] - losses[b][k])
+                / max(abs(losses[b][k]), 1e-30) for k in losses[b]}
+
+    grad_rel = {k: _rel_l2(grads["gpu64"][k], grads["cpu64"][k])
+                for k in grads["cpu64"]}
+    critic_grads = critic is not None and any(
+        p.grad is not None for _, c, _ in runs.values()
+        for p in c.parameters())
+    return {"losses": losses["gpu32"], "fp32_loss_rel_err": loss_rel(
+        "gpu32", "cpu32"), "fp64_loss_rel_err": loss_rel("gpu64", "cpu64"),
+        "fp64_grad_rel_l2": grad_rel, "critic_got_gradients": critic_grads}
+
+
+def _reference_bad(rec):
+    bad = {f"fp32.{k}": v for k, v in rec["fp32_loss_rel_err"].items()
+           if not v <= LOSS_TOL}
+    bad |= {f"fp64.{k}": v for k, v in rec["fp64_loss_rel_err"].items()
+            if not v <= LOSS_TOL}
+    bad |= {k: v for k, v in rec["fp64_grad_rel_l2"].items()
+            if not v <= GRAD_TOL}
+    if rec["critic_got_gradients"]:
+        bad["critic_got_gradients"] = True
+    return bad
+
+
+def _reference_summary(rec):
+    g = rec["fp64_grad_rel_l2"]
+    return {"losses": rec["losses"],
+            "fp32_loss_rel_err_max": max(rec["fp32_loss_rel_err"].values()),
+            "fp64_loss_rel_err_max": max(rec["fp64_loss_rel_err"].values()),
+            "fp64_grad_rel_l2_max": max(g.values()),
+            "fp64_grad_rel_l2_worst": max(g, key=g.get),
+            "critic_got_gradients": rec["critic_got_gradients"]}
+
+
+def check_variants_reference(dev):
+    """The small joint_age, sep and critic-on models: one step's losses
+    within LOSS_TOL at fp32 and fp64 and each gradient tensor within
+    GRAD_TOL relative L2 at fp64, GPU against CPU; no gradient reaches
+    the critic."""
+    recs, bad = {}, {}
+    for name in VARIANTS:
+        rec = _reference_step(name, dev)
+        recs[name] = _reference_summary(rec)
+        bad |= {f"{name}.{k}": v for k, v in _reference_bad(rec).items()}
+    emit({"phase": "variants_reference", "size": [32, 32, 32], "f_maps": 8,
+          "num_levels": 3, "variants": recs, "loss_tol": LOSS_TOL,
+          "grad_tol": GRAD_TOL})
+    if bad:
+        raise AssertionError(f"variants_reference failed: {bad}")
+
+
+def _kernel_check(launches, what):
+    """Every kernel of the path launched at least once."""
+    return [] if min(launches.values()) >= 1 else [
+        f"{what}: path missed a kernel: {launches}"]
+
+
+def run_variants(dev, power, tmp):
+    """Each variant of VARIANTS at full width, at its VARIANT_FIT memory
+    setting, bf16, AdamW: through train() for one epoch of VARIANT_ITR
+    iterations (validation on one batch, the epoch and best checkpoints),
+    then VARIANT_TIMED iterations timed as the train phase's. Per
+    variant: every step finite and applied, the age, sep or critic
+    losses present, peak memory and launch counts (counts set to 0 just
+    before the variant's run). Returns the launches summed over the
+    variants."""
+    total = {k: 0 for k in kernels.LAUNCHES}
+    bad = []
+    for name in VARIANTS:
+        remat, accum = VARIANT_FIT[name]
+        cfg = variant_cfg(name)
+        cfg.remat, cfg.grad_accum_samples, cfg.n_epochs = remat, accum, 1
+        torch.manual_seed(0)
+        cfg, model = build_model(cfg, device=dev)
+        _, weight_dict, loss_fn = make_criterion(cfg)
+        bank = SubjectBank(BANK)
+        bank.add_debug_subject(seed=0, extent=tuple(s * 5 // 6 for s in BANK))
+        out_dir = os.path.join(tmp, f"variant_{name}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, model, weight_dict, loss_fn, bank, out_dir,
+                      itr_per_epoch=VARIANT_ITR, log_itr=1, val_itr=1,
+                      n_val_items=1, seed=0)
+        train_s = time.perf_counter() - t0
+        steps = _read_steps(out_dir)
+        with open(os.path.join(out_dir, "log.txt")) as f:
+            epoch = json.loads(f.readline())
+        scfg = SynthStatic.from_cfg(cfg)
+        knobs = knobs_from_cfg(cfg, scfg, "synth")
+        subj = bank.to_device(0, dev)
+        gen = torch.Generator(dev).manual_seed(2)
+        critic, key = build_critic_from_cfg(cfg, device=dev)
+        step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
+                                  state.optimizer, sample_accum=accum,
+                                  critic=critic, critic_image_key=key)
+        timed = _timed_iterations(
+            VARIANT_TIMED,
+            lambda: make_batch([gen], subj, scfg, cfg.tasks, "synth", knobs),
+            lambda b: step_fn(state, b, 1e-4, 1e-2)[1])
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        want = {"joint_age": "train_loss_age", "sep": "train_loss_pathol_ce",
+                "critic": "train_loss_implicit_pathol_ce"}[name]
+        every = steps + timed
+        if len(steps) != VARIANT_ITR or not all(
+                np.isfinite(s["loss_total"]) and s["skipped"] == 0
+                for s in every):
+            bad.append(f"{name}: steps {every}")
+        if not (np.isfinite(epoch.get(want, np.nan))
+                and np.isfinite(epoch["val_loss_total"])):
+            bad.append(f"{name}: epoch {epoch}")
+        bad += _kernel_check(launches, name)
+        emit({"phase": "variants", "variant": name,
+              "size": list(scfg.size), "bank": list(BANK),
+              "samples": scfg.all_samples, "tasks": list(cfg.tasks),
+              "backbone": cfg.backbone or "unet3d",
+              "f_maps": int(cfg.f_maps), "num_levels": int(cfg.num_levels),
+              "amp": "bf16", "optimizer": cfg.optimizer, "remat": remat,
+              "grad_accum_samples": accum, "itr_per_epoch": VARIANT_ITR,
+              "train_s": train_s, "steps": steps, "epoch": epoch,
+              "timed": timed, "item_ms": [t["item_ms"] for t in timed],
+              "step_ms": [t["step_ms"] for t in timed],
+              "iter_ms": [t["iter_ms"] for t in timed], "peak_mem_gib": peak,
+              "launches": launches, "gpu": power})
+        for k, v in launches.items():
+            total[k] += v
+        del model, state, step_fn, critic, bank, subj
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"variants phase failed: {bad}")
+    return total
+
+
+def check_twostage_reference(dev):
+    """The small two-stage pair (f_maps 8, 3 levels, 32^3, S=2): one
+    step's losses and fp64 gradients of both stages, GPU against CPU, as
+    variants_reference; then TwoStageInferencer (random weights from seed
+    0 on both devices, fp32, TF32 off) on a small procedural head: every
+    output within MODEL_TOL of the CPU's, the label maps agreeing on
+    SEG_AGREE of the voxels, K2 launched for the GPU's label map."""
+    rec = _reference_step("twostage", dev)
+    bad = _reference_bad(rec)
+    cfg = ref_variant_cfg("twostage")
+    vol = procedural_head((32, 32, 32), (1.0, 1.0, 1.0), 5, "cpu")
+    gpu = TwoStageInferencer(copy.deepcopy(cfg), device=dev)
+    cpu = TwoStageInferencer(copy.deepcopy(cfg), device="cpu")
+    kernels.reset_launches()
+    og = gpu.evaluate_image(vol, keep_feat=False)
+    launches = dict(kernels.LAUNCHES)
+    oc = cpu.evaluate_image(vol, keep_feat=False)
+    rel = {k: _rel_err(og[k], oc[k]) for k in og if k != "label"}
+    agree = float((og["label"].cpu() == oc["label"]).float().mean())
+    bad |= {f"serve.{k}": v for k, v in rel.items() if not v <= MODEL_TOL}
+    if agree < SEG_AGREE:
+        bad["label_agree"] = agree
+    if launches["lut_gather_i32"] < 1:
+        bad["launches"] = launches
+    emit({"phase": "twostage_reference", "size": [32, 32, 32], "f_maps": 8,
+          "num_levels": 3, "samples": 2, **_reference_summary(rec),
+          "serve_rel_err": rel, "label_agree": agree, "launches": launches,
+          "loss_tol": LOSS_TOL, "grad_tol": GRAD_TOL, "model_tol": MODEL_TOL,
+          "seg_agree_min": SEG_AGREE})
+    if bad:
+        raise AssertionError(f"twostage_reference failed: {bad}")
+
+
+TWOSTAGE_HEADS = {"T1": 1, "T2": 1, "FLAIR": 1, "CT": 1, "segmentation": 56,
+                  "label": 1, "pathology": 1}
+
+
+def run_twostage(dev, power, tmp, root):
+    """The training CLI on twostage.yaml with cfgs/generator/train/
+    twostage.yaml over the data root `root` (the stream phase's), at
+    TWOSTAGE_FIT: one epoch of TWOSTAGE_ITR iterations with validation and
+    checkpoints; TRAIN_TIMED stream iterations of the pair timed in two
+    parts (item, step); then TwoStageInferencer on the run's ckp/ root
+    (bf16) serving one procedural head whole at 220^3: forward_ms (model,
+    processors, postprocess with K2 on the label map) after one untimed
+    volume. Launch counts over the phase (set to 0 at its start), and by
+    part: the CLI, the timed iterations, the served volume."""
+    remat, accum = TWOSTAGE_FIT
+    gen_yaml = os.path.join(tmp, "twostage_gen.yaml")
+    with open(os.path.join(ROOT, "cfgs/generator/train/twostage.yaml")) as f:
+        text = f.read()
+    with open(gen_yaml, "w") as f:
+        f.write(f"{text}\ndata_root: {root[0]}\nsplit_root: {root[1]}\n"
+                f"dataset_names: {list(STREAM_DATASETS)}\n")
+    out = os.path.join(tmp, "twostage_run")
+    args = ["--gen_cfg", gen_yaml, "--train_cfg", "twostage", "--epochs", "1",
+            "--itr_per_epoch", str(TWOSTAGE_ITR), "--out_dir", out,
+            "--remat", remat, "--grad_accum", str(accum), "--device", str(dev)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _run_cli(args)
+    cli_s = time.perf_counter() - t0
+    cli_launches = dict(kernels.LAUNCHES)
+    with open(os.path.join(out, "log.txt")) as f:
+        epoch = json.loads(f.readline())
+
+    cfg = train_script.train_config(gen_yaml, "twostage")
+    cfg.remat, cfg.grad_accum_samples = remat, accum
+    torch.manual_seed(0)
+    cfg, pair = build_inpaint_model(cfg, device=dev)
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    stream = build_datasets(cfg, cfg.tasks, device=dev)["_concat"]
+    state = TrainState(pair, build_optimizer(cfg, pair.parameters()), 0)
+    step_fn = make_twostage_train_step(pair, cfg, weight_dict, loss_fn,
+                                       state.optimizer, sample_accum=accum)
+    items = stream.epoch(0, TRAIN_TIMED, seed=1)
+
+    def item():
+        _, target, samples = next(items)
+        return stack_items([target], [samples])
+
+    before = dict(kernels.LAUNCHES)
+    timed = _timed_iterations(TRAIN_TIMED, item,
+                              lambda b: step_fn(state, b, 1e-4, 1e-2)[1])
+    timed_launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    del pair, state, step_fn, stream, items
+    torch.cuda.empty_cache()
+
+    head = os.path.join(tmp, "twostage_head.nii")
+    save_nifti(head, procedural_head(SERVE_SHAPE, SERVE_VOXEL_MM, 20, dev),
+               serve_affine(SERVE_SHAPE, SERVE_VOXEL_MM))
+    ckp = os.path.join(out, "ckp")
+    inf = TwoStageInferencer(cfg, pathol_ckpt=ckp, task_ckpt=ckp,
+                             compute_dtype=torch.bfloat16, exact=False,
+                             device=dev)
+    im = prepare_image(head, list(SERVE_WIN), device=dev)[0]
+    inf.evaluate_image(im, keep_feat=False)   # cuDNN's choices, allocator
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    served, forward_ms = _synced_ms(
+        lambda: inf.evaluate_image(im, keep_feat=False))
+    serve_launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    peak_serve = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(kernels.LAUNCHES)
+
+    # the CLI logs every 10th step; the epoch line holds every step's mean
+    # loss (NaN-free) and the share of skipped steps
+    bad = []
+    if not all(np.isfinite(t["loss_total"]) and t["skipped"] == 0
+               for t in timed):
+        bad.append(f"timed {timed}")
+    if epoch.get("train_skipped") != 0 or not all(
+            np.isfinite(epoch.get(k, np.nan)) for k in (
+                "train_loss_total", "train_loss_pathol_ce", "train_loss_T1",
+                "val_loss_total")):
+        bad.append(f"epoch {epoch}")
+    for k, c in TWOSTAGE_HEADS.items():
+        v = served.get(k)
+        if v is None or tuple(v.shape) != (1, *SERVE_WIN, c) or (
+                v.is_floating_point() and not bool(torch.isfinite(v).all())):
+            bad.append(f"served {k}: {None if v is None else tuple(v.shape)}")
+    p = served["pathology"]
+    table = torch.tensor(cfg.label_list_segmentation, dtype=torch.int32,
+                         device=dev)
+    if not (float(p.min()) >= 0.0 and float(p.max()) <= 1.0) or not bool(
+            torch.isin(served["label"], table).all()):
+        bad.append("served mask outside [0, 1] or labels outside the table")
+    bad += _kernel_check(launches, "twostage")
+    if serve_launches["lut_gather_i32"] < 1:
+        bad.append(f"served volume missed K2: {serve_launches}")
+    emit({"phase": "twostage", "extent": list(STREAM_EXTENT),
+          "size": list(cfg.generator.size),
+          "samples": int(cfg.generator.all_samples),
+          "tasks": list(cfg.tasks), "backbone": cfg.backbone,
+          "f_maps": int(cfg.f_maps), "num_levels": int(cfg.num_levels),
+          "amp": "bf16", "remat": remat, "grad_accum_samples": accum,
+          "itr_per_epoch": TWOSTAGE_ITR, "cli_train_s": cli_s,
+          "epoch": epoch, "timed": timed,
+          "item_ms": [t["item_ms"] for t in timed],
+          "step_ms": [t["step_ms"] for t in timed],
+          "iter_ms": [t["iter_ms"] for t in timed],
+          "peak_mem_gib": peak_train, "serve_win": list(SERVE_WIN),
+          "serve_dtype": "bf16", "forward_ms": forward_ms,
+          "peak_mem_gib_serve": peak_serve, "launches_cli": cli_launches,
+          "launches_timed": timed_launches, "launches_served": serve_launches,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"twostage phase failed: {bad}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1588,15 +1991,26 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         check_stream_reference(dev, tmp)
         lap("stream_reference")
-        stream_launches = run_stream(dev, power, tmp)
+        stream_launches, root = run_stream(dev, power, tmp)
         lap("stream")
-    torch.cuda.empty_cache()
-    pathology_launches = run_pathology(dev, power)
-    lap("pathology")
+        torch.cuda.empty_cache()
+        pathology_launches = run_pathology(dev, power)
+        lap("pathology")
+        torch.cuda.empty_cache()
+        check_variants_reference(dev)
+        lap("variants_reference")
+        variants_launches = run_variants(dev, power, tmp)
+        lap("variants")
+        torch.cuda.empty_cache()
+        check_twostage_reference(dev)
+        lap("twostage_reference")
+        twostage_launches = run_twostage(dev, power, tmp, root)
+        lap("twostage")
     emit({"phase": "elapsed_s", **elapsed})
     paths = {"slice": slice_launches, "serve": serve_launches,
              "train": train_launches, "stream": stream_launches,
-             "pathology": pathology_launches}
+             "pathology": pathology_launches, "variants": variants_launches,
+             "twostage": twostage_launches}
 
     keys = ("case", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms",
             "bound_ms", "bound_by")

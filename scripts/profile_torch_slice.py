@@ -30,8 +30,15 @@ setting is profiled after a warm-up, with its device time by kernel family
 (GroupNorm forward and backward, convolution forward, dgrad and wgrad, the
 optimizer's foreach kernels, the rest).
 
-    python3 scripts/profile_torch_slice.py            # everything
-    python3 scripts/profile_torch_slice.py --train    # training only
+The model variants (`fit_variants`): chip_smoke.py's variants (joint_age,
+sep, the critic-on flagship) and the two-stage pair at full width, each
+through fit_train over remat 'save_convs' at grad_accum_samples 1, 2 and
+4 (those that divide its S); the settings it picks are chip_smoke.py's
+VARIANT_FIT and TWOSTAGE_FIT.
+
+    python3 scripts/profile_torch_slice.py              # everything
+    python3 scripts/profile_torch_slice.py --train      # training only
+    python3 scripts/profile_torch_slice.py --variants   # the variants' fit
 
 Chrome traces go to outs/profile_torch_slice/ (git-ignored).
 """
@@ -54,7 +61,9 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (flagship config and constants)
 from brainfm_tpu_torch.infer import Inferencer, prepare_image  # noqa: E402
-from brainfm_tpu_torch.models import apply_processors, build_model  # noqa: E402
+from brainfm_tpu_torch.models import (apply_processors,  # noqa: E402
+                                      build_critic_from_cfg,
+                                      build_inpaint_model, build_model)
 from brainfm_tpu_torch.models.criterion import make_criterion  # noqa: E402
 from brainfm_tpu_torch.models.unet3d import DoubleConv, remat_mode  # noqa: E402
 from brainfm_tpu_torch.synth import (SubjectBank, SynthStatic,  # noqa: E402
@@ -93,6 +102,7 @@ FAMILIES = (("groupnorm_fwd", ("RowwiseMoments", "ComputeFusedParams")),
             ("elementwise", ("elementwise_kernel", "reduce_kernel")))
 TRAIN_HEADROOM_GB = 8.0
 TRAIN_SETTINGS = (("save_convs", 1), ("save_convs", 2), ("full", 2))
+VARIANT_SETTINGS = (("save_convs", 1), ("save_convs", 2), ("save_convs", 4))
 
 
 def families(kern) -> dict:
@@ -150,6 +160,9 @@ def main():
     if "--train" in sys.argv[1:]:
         profile_train(dev, out_dir)
         return 0
+    if "--variants" in sys.argv[1:]:
+        fit_variants(dev)
+        return 0
     cfg = chip_smoke.flagship_cfg()
     torch.manual_seed(0)
     cfg, model = build_model(cfg, device=dev)
@@ -187,20 +200,25 @@ def _set_remat(model, remat):
             m.remat = remat_mode(remat)
 
 
-def fit_train(cfg, model, weight_dict, loss_fn, batch, dev):
-    """One warm and one measured train step under each TRAIN_SETTINGS
-    entry (optimizer state made by the first step, so the measured one
-    holds it all); prints a line each and returns the first setting whose
-    peak allocated memory leaves TRAIN_HEADROOM_GB of the card free."""
+def fit_train(cfg, model, weight_dict, loss_fn, batch, dev,
+              settings=TRAIN_SETTINGS, critic=None, label="flagship"):
+    """One warm and one measured train step under each of `settings`
+    (optimizer state made by the first step, so the measured one holds it
+    all; a frozen `critic` takes the same remat); prints a line each and
+    returns the first setting whose peak allocated memory leaves
+    TRAIN_HEADROOM_GB of the card free."""
     total = torch.cuda.get_device_properties(dev).total_memory
     chosen = None
-    for remat, accum in TRAIN_SETTINGS:
-        _set_remat(model, remat)
+    for remat, accum in settings:
+        for m in (model, critic):
+            if m is not None:
+                _set_remat(m, remat)
         torch.cuda.empty_cache()
         state = TrainState(model, build_optimizer(cfg, model.parameters()))
         step = make_train_step(model, cfg, weight_dict, loss_fn,
-                               state.optimizer, sample_accum=accum)
-        rec = {"phase": "fit_train", "remat": remat,
+                               state.optimizer, sample_accum=accum,
+                               critic=critic, critic_image_key="T1")
+        rec = {"phase": "fit_train", "model": label, "remat": remat,
                "grad_accum_samples": accum}
         try:
             state, _ = step(state, batch, 1e-4, 0.0)
@@ -225,6 +243,33 @@ def fit_train(cfg, model, weight_dict, loss_fn, batch, dev):
         print(json.dumps(rec), flush=True)
         if rec["fits"] and chosen is None:
             chosen = (remat, accum)
+    return chosen
+
+
+def fit_variants(dev):
+    """fit_train at VARIANT_SETTINGS for each of chip_smoke.VARIANTS and
+    the two-stage pair, on a flagship item of its config (160^3 from a
+    192^3 bank); prints the chosen (remat, accumulation) of each."""
+    chosen = {}
+    for name in chip_smoke.VARIANTS + ("twostage",):
+        build = build_inpaint_model if name == "twostage" else build_model
+        torch.manual_seed(0)
+        cfg, model = build(chip_smoke.variant_cfg(name), device=dev)
+        _, weight_dict, loss_fn = make_criterion(cfg)
+        critic, _ = build_critic_from_cfg(cfg, device=dev)
+        scfg = SynthStatic.from_cfg(cfg)
+        bank = SubjectBank(chip_smoke.BANK)
+        bank.add_debug_subject(seed=0)
+        batch = make_batch([torch.Generator(dev).manual_seed(1)],
+                           bank.to_device(0, dev), scfg, cfg.tasks, "synth",
+                           knobs_from_cfg(cfg, scfg, "synth"))
+        settings = [s for s in VARIANT_SETTINGS
+                    if scfg.all_samples % s[1] == 0]
+        chosen[name] = fit_train(cfg, model, weight_dict, loss_fn, batch, dev,
+                                 settings, critic, name)
+        del model, critic, batch, bank
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "fit_variants", "chosen": chosen}), flush=True)
     return chosen
 
 

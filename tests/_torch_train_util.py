@@ -21,14 +21,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = (8, 8, 8)
 
 
-def joint_cfg(load, f_maps=8, num_levels=2, size=SIZE):
-    """cfgs/trainer/train/joint.yaml over default_train.yaml with the
-    brain_id generator, cut to f_maps `f_maps`, `num_levels` levels and a
-    `size` crop; fp64-friendly (no autocast)."""
+def joint_cfg(load, f_maps=8, num_levels=2, size=SIZE, gen="brain_id",
+              train="joint"):
+    """cfgs/trainer/train/<train>.yaml over default_train.yaml with the
+    <gen> generator (default: joint with brain_id), cut to f_maps
+    `f_maps`, `num_levels` levels and a `size` crop; fp64-friendly (no
+    autocast)."""
     gen = load([os.path.join(ROOT, "cfgs/generator/default.yaml"),
-                "brain_id"], cfg_dir=os.path.join(ROOT, "cfgs/generator/train"))
+                gen], cfg_dir=os.path.join(ROOT, "cfgs/generator/train"))
     tr = load([os.path.join(ROOT, "cfgs/trainer/default_train.yaml"),
-               "joint"], cfg_dir=os.path.join(ROOT, "cfgs/trainer/train"))
+               train], cfg_dir=os.path.join(ROOT, "cfgs/trainer/train"))
     merge_missing(tr, gen)
     tr.f_maps, tr.num_levels, tr.task_f_maps = f_maps, num_levels, [f_maps]
     tr.generator.size = list(size)

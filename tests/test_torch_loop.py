@@ -3,7 +3,8 @@ stacking and the samplers against the JAX package's; then the port's own
 loop: checkpoints in its format, train() with a resume that ends bitwise
 where an uninterrupted run ends, train() on the dataset stream, the
 training CLI (from a data root in the DATASET_SETUPS layout, and
---eval_only), and every branch that is not ported yet (each raises
+--eval_only), the two-stage pair and the critic through train() and the
+CLI, and every branch that is not ported yet (each raises
 NotImplementedError)."""
 
 import functools
@@ -23,7 +24,7 @@ from brainfm_tpu.synth.sharded import stack_items as jstack_items
 from brainfm_tpu.train import loop as jloop
 from brainfm_tpu_torch.config import load_config as tload
 from brainfm_tpu_torch.infer import Inferencer
-from brainfm_tpu_torch.models import build_model
+from brainfm_tpu_torch.models import build_inpaint_model, build_model
 from brainfm_tpu_torch.models.criterion import make_criterion
 from brainfm_tpu_torch.scripts import train as train_script
 from brainfm_tpu_torch.synth import SubjectBank, datasets, sampler
@@ -352,15 +353,31 @@ def test_cli_debug_run_on_cpu(tmp_path, capsys, small_bank):
 
 @pytest.mark.parametrize("kw", [{"stream": "debug datasets"},
                                 {"mesh": object()}, {"fsdp": True},
-                                {"twostage_models": (None, None)},
+                                {"twostage_models": "the pair"},
                                 {"vis_itr": 5}])
 def test_train_refuses_what_is_not_ported(tmp_path, kw):
-    """mesh=, fsdp, two-stage models and the visualizer raise; stream=, a
-    refusal before the dataset stream was ported, now trains: two debug
-    datasets' stream, no bank."""
+    """mesh=, fsdp and the visualizer raise. Two cases that were refused
+    before their slices were ported now train: stream= (two debug
+    datasets' stream, no bank) and twostage_models= (the joint config on
+    an 'a+b' backbone: stage 0 learns through stage 1's losses alone)."""
     torch.manual_seed(0)
     cfg, model = build_model(_small_train_cfg(1), device="cpu")
     _, w, fn = make_criterion(cfg)
+    if "twostage_models" in kw:
+        cfg = _small_train_cfg(1)
+        cfg.backbone = "unet3d+unet3d"
+        cfg, pair = build_inpaint_model(cfg, device="cpu")
+        before = {k: v.clone() for k, v in pair.state_dict().items()}
+        state = loop.train(cfg, None, w, fn, _bank(), str(tmp_path),
+                           itr_per_epoch=2, n_val_items=1,
+                           twostage_models=pair)
+        assert state.step == 2 and state.model is pair
+        assert all(not torch.equal(before[k], v)
+                   for k, v in pair.state_dict().items()
+                   if k.endswith("conv.weight"))
+        line = json.loads(open(tmp_path / "log.txt").read())
+        assert np.isfinite(line["val_loss_total"])
+        return
     if "stream" in kw:
         cfg.dataset_names = ["HCP", "ATLAS"]
         ds = datasets.build_datasets(cfg, cfg.tasks, device="cpu",
@@ -378,22 +395,33 @@ def test_train_refuses_what_is_not_ported(tmp_path, kw):
 
 
 def test_train_refuses_the_critic_flag(tmp_path):
+    """losses.implicit_pathol, refused before the critic was ported, now
+    trains against a random-init frozen critic (with its warning): the
+    implicit-pathology losses are logged for training and validation."""
     torch.manual_seed(0)
-    cfg, model = build_model(_small_train_cfg(1), device="cpu")
+    cfg = _small_train_cfg(1)
     cfg.losses.implicit_pathol = True
+    cfg.critic_f_maps, cfg.critic_num_levels = 8, 2
+    cfg, model = build_model(cfg, device="cpu")
     _, w, fn = make_criterion(cfg)
-    with pytest.raises(NotImplementedError, match="pathology"):
-        loop.train(cfg, model, w, fn, _bank(), str(tmp_path))
+    with pytest.warns(UserWarning, match="RANDOM"):
+        state = loop.train(cfg, model, w, fn, _bank(), str(tmp_path),
+                           itr_per_epoch=2, n_val_items=1)
+    assert state.step == 2
+    line = json.loads(open(tmp_path / "log.txt").read())
+    for k in ("train_loss_implicit_pathol_ce", "val_loss_implicit_pathol_ce",
+              "train_loss_implicit_pathol_dice"):
+        assert np.isfinite(line[k]), k
 
 
 @pytest.mark.parametrize("case", ["mesh", "fsdp", "eval_only", "data_root",
                                   "twostage"])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, small_bank, case):
-    """--mesh, --fsdp and two-stage backbones raise. The two cases that
-    were refused before the dataset stream was ported now run: a data root
-    in the DATASET_SETUPS layout trains on its subjects (read through the
-    codec); --eval_only without --resume is an error, and with the
-    checkpoint of that run scores the stream's validation set."""
+    """--mesh and --fsdp raise. The cases that were refused before their
+    slices were ported now run: a data root in the DATASET_SETUPS layout
+    trains on its subjects (read through the codec); --eval_only without
+    --resume is an error, and with the checkpoint of that run scores the
+    stream's validation set; a two-stage backbone trains the pair."""
     args = [*_cli_cfgs(tmp_path, _data_root_cfg(tmp_path)
                        if case in ("eval_only", "data_root") else ""),
             "--device", "cpu", "--debug", "--no_amp",
@@ -413,11 +441,16 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, small_bank, case):
                      if ln.startswith("val[")]
             assert len(lines) == 2 and "'loss_total'" in lines[0]
         return
-    if case in ("mesh", "fsdp"):
-        args += {"mesh": ["--mesh", "2"], "fsdp": ["--fsdp"]}[case]
-    else:
+    if case == "twostage":
         with open(tmp_path / "tr.yaml", "a") as f:
             f.write("backbone: unet3d+unet3d\n")
+        assert train_script.main(args) == 0
+        assert "final step 2" in capsys.readouterr().out
+        state = torch.load(tmp_path / "run" / "ckp" / "ckpt_000002" /
+                           "model.pt", weights_only=True)
+        assert {k.split(".")[0] for k in state} == {"pathol", "task"}
+        return
+    args += {"mesh": ["--mesh", "2"], "fsdp": ["--fsdp"]}[case]
     with pytest.raises(NotImplementedError):
         train_script.main(args)
 

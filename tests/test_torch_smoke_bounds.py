@@ -92,3 +92,29 @@ def test_kernel_cases_cover_every_kernel(monkeypatch):
         assert torch.equal(got, want), c.name
         assert c.library().numel() == got.numel(), c.name
         assert c.nbytes >= got.numel() * got.element_size(), c.name
+
+
+@pytest.mark.parametrize("name", [*chip_smoke.VARIANTS, "twostage"])
+def test_variant_configs_and_memory_settings(name):
+    """Each of chip_smoke's variant configs is the shipped one at full
+    width (f_maps 64, 160^3; L6 for joint_age, L5 for the rest), and its
+    pinned memory setting is a remat mode whose accumulation divides the
+    sample stack."""
+    from brainfm_tpu_torch.models import process_args
+    from brainfm_tpu_torch.models.unet3d import remat_mode
+
+    cfg = process_args(chip_smoke.variant_cfg(name))
+    remat, accum = (chip_smoke.TWOSTAGE_FIT if name == "twostage"
+                    else chip_smoke.VARIANT_FIT[name])
+    assert remat_mode(remat) == "save_convs"
+    assert cfg.generator.all_samples % accum == 0
+    assert int(cfg.f_maps) == 64 and list(cfg.generator.size) == [160] * 3
+    assert int(cfg.num_levels) == (6 if name in ("joint_age", "critic")
+                                   else 5)
+    want = {"joint_age": ("age", -1), "sep": ("pathology", 1),
+            "critic": ("T1", 1), "twostage": ("pathology", 1)}[name]
+    assert cfg.out_channels[want[0]] == want[1]
+    assert bool(cfg.losses.implicit_pathol) == (name == "critic")
+    assert (cfg.backbone or "unet3d") == {"sep": "unet3d_sep",
+                                          "twostage": "unet3d+unet3d"}.get(
+        name, "unet3d")

@@ -279,7 +279,8 @@ def test_stream_plan_matches_jax_over_two_epochs(monkeypatch, data_root):
     assert plans["got"] == plans["want"]
     assert {m for m, _ in plans["got"][1::2]} >= {"synth", "T1"}
     assert len({p for _, p in plans["got"][1::2]}) == 2   # both lesions
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-GPU slice, ROADMAP Queue 1 item 5"):
         got["HCP"].get_group([0])
 
 

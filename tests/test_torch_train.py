@@ -562,8 +562,14 @@ def test_optimizer_and_clip_options():
 
 
 def test_critic_flag_is_refused_not_ignored():
-    cfg = AttrDict.from_nested({"losses": {"implicit_pathol": False}})
-    assert build_critic_from_cfg(cfg) == (None, None, None)
+    """Off, the flag builds nothing; on, it builds the frozen critic (a
+    random init announced by a warning), where it used to raise."""
+    cfg = AttrDict.from_nested({"losses": {"implicit_pathol": False},
+                                "critic_f_maps": 8, "critic_num_levels": 2})
+    assert build_critic_from_cfg(cfg) == (None, None)
     cfg.losses.implicit_pathol = True
-    with pytest.raises(NotImplementedError, match="pathology"):
-        build_critic_from_cfg(cfg)
+    cfg.tasks = ["T1"]
+    with pytest.warns(UserWarning, match="RANDOM"):
+        critic, key = build_critic_from_cfg(cfg, device="cpu")
+    assert key == "T1" and not critic.training
+    assert not any(p.requires_grad for p in critic.parameters())
