@@ -168,7 +168,7 @@ class Inferencer:
             im = img_path_or_vol
         return self.evaluate_image(im, feature_only=True)
 
-    def _fetch_outputs(self, outs, exclude_keys):
+    def fetch_outputs(self, outs, exclude_keys):
         """Device -> host copies of the outputs to write, as numpy arrays;
         the device tensors can go as soon as this returns. From CUDA the
         copies go into page-locked buffers, all queued before one wait
@@ -238,7 +238,7 @@ class Inferencer:
                     viewVolume(im.cpu().numpy(), aff, names=["input"],
                                ext=ext, save_dir=out_dir)
                 outs = self.evaluate_image(im, keep_feat=False)
-                host = self._fetch_outputs(outs, exclude_keys)
+                host = self.fetch_outputs(outs, exclude_keys)
                 del outs
                 self._write_outputs(host, aff, out_dir, ext)
                 results.append(out_dir)
@@ -259,7 +259,7 @@ class Inferencer:
                         viewVolume(im.cpu().numpy(), aff, names=["input"],
                                    ext=ext, save_dir=out_dir)
                     outs = self.evaluate_image(im, keep_feat=False)
-                    host = self._fetch_outputs(outs, exclude_keys)
+                    host = self.fetch_outputs(outs, exclude_keys)
                     del outs
                     if write is not None:
                         write.result()
@@ -289,7 +289,7 @@ class Inferencer:
             out_host = [None] * len(g)
             for members in buckets.values():
                 x = torch.stack([im for _, im in members])[..., None]
-                host = self._fetch_outputs(self.evaluate_batch(x),
+                host = self.fetch_outputs(self.evaluate_batch(x),
                                            exclude_keys)
                 for i, (pos, _) in enumerate(members):
                     out_host[pos] = {k: v[i:i + 1] for k, v in host.items()}

@@ -67,21 +67,30 @@ def add_bias_field(im, seed: int = 0, bf_scale_min: float = 0.02,
     return im * bf, bf
 
 
-def resample_roundtrip(im, new_res):
-    """Acquisition simulation: resample to `new_res` mm and zoom back to the
-    1 mm grid (parity: resample, test_utils.py:202-232: center-aligned
-    `delta=(1-f)/(2f)` coordinates both ways). The down-sampling warp is K1
-    (`warp_volume`, C=1, default 0) on CUDA."""
-    shp = np.asarray(im.shape[:3])
+def acquisition_grid(shape, new_res, device):
+    """The source coordinates of the resample of a `shape` volume at 1 mm
+    to `new_res` mm (center-aligned `delta=(1-f)/(2f)`): three fp32
+    volumes of the low-resolution shape on `device`, and the factors."""
+    shp = np.asarray(shape[:3])
     new_size = (shp / np.asarray(new_res, np.float64)).astype(int)
     factors = new_size / shp
     delta = (1.0 - factors) / (2.0 * factors)
     vs = [np.arange(delta[a], delta[a] + new_size[a] / factors[a],
                     1 / factors[a])[: new_size[a]] for a in range(3)]
-    grid = [torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(im.device)
+    grid = [torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(device)
             for c in np.meshgrid(*vs, sparse=False, indexing="ij")]
+    return grid, factors
+
+
+def resample_roundtrip(im, new_res):
+    """Acquisition simulation: resample to `new_res` mm and zoom back to the
+    1 mm grid (parity: resample, test_utils.py:202-232: center-aligned
+    `delta=(1-f)/(2f)` coordinates both ways). The down-sampling warp is K1
+    (`warp_volume`, C=1, default 0) on CUDA."""
+    grid, factors = acquisition_grid(im.shape, new_res, im.device)
     low = warp_volume(im.float().contiguous(), grid, default=0.0)
-    return myzoom(low, 1.0 / factors, newsize=tuple(int(v) for v in shp))
+    return myzoom(low, 1.0 / factors,
+                  newsize=tuple(int(v) for v in im.shape[:3]))
 
 
 def prepare_image(img_path: str, win_size=None, zero_crop_first: bool = False,

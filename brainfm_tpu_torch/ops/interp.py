@@ -92,3 +92,13 @@ def nearest3d(vol, ii, jj, kk):
     if squeeze:
         out = out[..., 0]
     return out
+
+
+def interp3d(vol, ii, jj, kk, mode: str = "linear", default=0.0):
+    """trilinear3d (mode 'linear', out-of-bounds voxels `default`) or
+    nearest3d (mode 'nearest'), as fast_3D_interp_torch's `mode`."""
+    if mode == "linear":
+        return trilinear3d(vol, ii, jj, kk, default)
+    if mode == "nearest":
+        return nearest3d(vol, ii, jj, kk)
+    raise ValueError("mode must be linear or nearest")

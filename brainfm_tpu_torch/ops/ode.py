@@ -17,12 +17,19 @@ arithmetic) and one host read of the error ratio per step. `stats`, when
 given, receives the counts of adaptive steps (`steps`, rejected ones
 included), of `rejected` steps and of right-hand-side evaluations
 (`evals`).
+
+`odeint_adjoint` is the differentiable form: the fixed-step methods
+recompute each interval in the backward pass
+(`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`); the
+adaptive methods give values only, since the JAX package cannot
+reverse-differentiate its adaptive loop either.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _f32(x):
@@ -231,14 +238,63 @@ def odeint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
                                 corrector=(method != "explicit_adams"))
     if method not in _TABLEAUS:
         raise ValueError(f"unsupported method {method}")
+    return _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats)
+
+
+def _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats,
+                        k1=None):
+    """The adaptive pair `method` through the output times t, with the
+    step size and the first stage carried across the intervals."""
     tab = _TABLEAUS[method]
-    h, k1 = _dt0(dt, t), func(t[0], y0)
+    h = _dt0(dt, t)
+    k1 = func(t[0], y0) if k1 is None else k1
     ys, y = [y0], y0
     for i in range(t.shape[0] - 1):
         y, h, k1 = _adaptive_interval(func, tab, y, t[i], t[i + 1], rtol,
                                       atol, h, k1, stats=stats)
         ys.append(y)
     return torch.stack(ys)
+
+
+def odeint_adjoint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
+                   stats=None):
+    """odeint for reverse-mode differentiation (API parity:
+    ShapeID/DiffEqs/adjoint.py `odeint_adjoint`). Returns (T, *y0.shape).
+
+    euler, midpoint and rk4 give odeint's values, each interval under
+    `torch.utils.checkpoint` (use_reentrant=False), so the backward pass
+    recomputes an interval's stages instead of keeping them. 'adams',
+    'explicit_adams' and 'fixed_adams' run the fixed-step Adams family
+    (with the corrector but for 'explicit_adams'), as the JAX package's
+    odeint_adjoint does; odeint takes the dopri5 controller for 'adams'.
+    dopri5 and tsit5 give odeint's values and carry (h, k1) across the
+    intervals; they take no gradient (their loop is driven by host reads of
+    the error ratio), and raise when y0 or the right-hand side requires
+    one."""
+    method = method or "dopri5"
+    t = _np_times(t, y0)
+    func = _counted(func, stats)
+    if method in _FIXED_STEPS:
+        step = _FIXED_STEPS[method]
+        ys = [y0]
+        for i in range(t.shape[0] - 1):
+            ys.append(checkpoint(step, func, t[i], float(t[i + 1] - t[i]),
+                                 ys[-1], use_reentrant=False))
+        return torch.stack(ys)
+    if method in ("explicit_adams", "fixed_adams", "adams"):
+        return _adams_integrate(func, y0, t,
+                                corrector=(method != "explicit_adams"))
+    if method not in _TABLEAUS:
+        raise ValueError(f"unsupported method {method}")
+    k1 = func(t[0], y0)
+    if torch.is_grad_enabled() and (y0.requires_grad or k1.requires_grad):
+        raise RuntimeError(
+            f"odeint_adjoint: the adaptive method {method!r} cannot be "
+            "differentiated (its step controller reads the error on the "
+            "host); use a fixed-step method (euler, midpoint, rk4) on a "
+            "finer grid, or call it under torch.no_grad()")
+    return _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats,
+                               k1=k1)
 
 
 def odeint_masked_final(func, y0, t, nt: int, dt=None, method="rk4",

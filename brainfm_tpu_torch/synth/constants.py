@@ -16,6 +16,11 @@ LABELS_EXTRACEREBRAL = [0, 11, 12, 13, 16, 31, 32, 33, 34, 35, 36, 37, 38, 39,
                         50, 52, 54, 56]
 N_NEUTRAL = 20
 
+# SynthSeg right->left label merge for contrast synthesis
+# (parity: Generator/utils.py:646-661)
+RIGHT_TO_LEFT = {41: 2, 42: 3, 43: 4, 44: 5, 46: 7, 47: 8, 49: 10, 50: 11,
+                 51: 12, 52: 13, 53: 17, 54: 18, 58: 26, 60: 28}
+
 # (parity: Generator/utils.py:663-669)
 CT_BRIGHTNESS_GROUP = {
     "darker": [4, 5, 14, 15, 24, 31, 72],

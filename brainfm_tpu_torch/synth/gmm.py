@@ -1,10 +1,12 @@
-"""GMM contrast tables from generation label maps (port of
-brainfm_tpu/synth/gmm.py: `build_contrast_lut` and `sample_contrast_lut`)."""
+"""GMM contrast tables from generation label maps, and the per-voxel
+intensity draw (port of brainfm_tpu/synth/gmm.py: `build_contrast_lut`,
+`sample_contrast_lut`, `synth_intensities`)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.lut import lut_apply
 from .constants import CT_BRIGHTNESS_GROUP
 from .draws import Draws
 
@@ -62,3 +64,25 @@ def sample_contrast_lut(draws: Draws, ct_prob: float = 0.0, photo_mode=None):
     zero_bg = draws.uniform("zero_bg_u") < 0.5
     return build_contrast_lut(mus, sigmas, ct_levels, is_ct, zero_bg,
                               photo_mode)
+
+
+def synth_intensities(draws: Draws, gen_labels, mus, sigmas, hemis_mask=None,
+                      noise=None):
+    """Per-voxel gaussian intensities from the label tables (parity:
+    datasets.py:364-374): the white-matter lesion label 77 merged into 2,
+    labels outside `hemis_mask` zeroed, the labels rounded and clipped to
+    [0, 255], then one K2 lookup (`lut_gather_f32`) of the (256, 2) table
+    [mus, sigmas] and `mus + sigmas * noise`, clamped at 0. `noise`: a
+    standard-normal field of gen_labels' shape, drawn from `draws`
+    ('noise') when not given."""
+    g = torch.where(gen_labels == 77, 2, gen_labels)
+    if hemis_mask is not None:
+        g = torch.where(hemis_mask == 0, 0, g)
+    if g.is_floating_point():
+        g = torch.round(g)
+    gr = g.to(torch.int32).clamp(0, 255)
+    ms = lut_apply(torch.stack([mus, sigmas], dim=1).float().contiguous(),
+                   gr.contiguous())
+    if noise is None:
+        noise = draws.normal("noise", tuple(gr.shape))
+    return (ms[..., 0] + ms[..., 1] * noise).clamp(min=0.0)

@@ -11,10 +11,12 @@ drawn per epoch from (seed, epoch): a torch generator for the bank's items
 for the host draws, all made anew each epoch, so a run resumed at an epoch
 boundary draws what an uninterrupted one draws. With
 `losses.implicit_pathol` the frozen critic scores every step and
-validation batch; `twostage_models` trains the two-stage pair.
+validation batch; `twostage_models` trains the two-stage pair. Every
+`vis_itr` steps the visualizer writes PNG montages, feature strips and
+NIfTI dumps of a forward on the step's batch.
 
-Not ported here: the multi-GPU mesh and FSDP (ROADMAP Queue 1 item 5) and
-the periodic visualizer (item 4); each raises NotImplementedError.
+Not ported here: the multi-GPU mesh and FSDP (ROADMAP Queue 1 item 5);
+they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,18 +28,21 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.build import build_critic_from_cfg
+from ..models.build import build_critic_from_cfg, process_outputs
 from ..models.criterion import weighted_total
 from ..synth import SynthStatic, knobs_from_cfg, synth_item
 from ..synth.batch import stack_items
 from ..synth.datasets import item_generator
 from ..synth.sampler import WeightedSubjectSampler, choose_modality
 from ..utils.logging import plot_loss, setup_logging, write_log_line
+from ..utils.nifti import viewVolume
+from ..utils.visualizer import FeatVisualizer, TaskVisualizer, to_host
 from .checkpoint import (finalize_pending, load_checkpoint, read_extra,
                          save_best_checkpoint, save_checkpoint)
 from .schedules import build_schedules
-from .step import (TrainState, amp_enabled, batch_losses, build_optimizer,
-                   make_train_step, make_twostage_train_step, split_samples)
+from .step import (TrainState, _each, amp_enabled, batch_losses,
+                   build_optimizer, make_train_step, make_twostage_train_step,
+                   split_samples)
 
 
 def make_batch(generators, subject, scfg, tasks, input_mode, knobs):
@@ -204,6 +209,48 @@ def _bank_batch(bank, idx, dev, stage_host, input_prob, rng_host,
                       knobs[mode])
 
 
+@torch.no_grad()
+def visualize_step(cfg, model, batch, gstep: int, out_dir: str):
+    """The periodic visualization (parity: loop.py:547-600): a forward of
+    the batch's first item (its S samples) under the step's autocast,
+    the output processors (a two-stage model's 'feat_task' is its 'feat'
+    and its 'pathology' is already a sigmoid), then the feature strips of
+    the last decoder level (`visualizer.feat_vis`) under vis_feat/, the
+    NIfTI dumps (`visualizer.make_results`) under vis/results_<step>/ and
+    the montage under vis/. No parameter, gradient or random state is
+    touched."""
+    vcfg = cfg.get("visualizer")
+    x = batch["samples"]["input"][0]
+    c = batch.get("cond")
+    with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                        enabled=amp_enabled(cfg)):
+        outs = model(x, cond=None if c is None else c[0])
+    outs = {("feat" if k == "feat_task" else k): _each(v, lambda t: t.float())
+            for k, v in outs.items() if k != "feat_pathol"}
+    outs = process_outputs(model, outs, cfg)
+    if vcfg is not None and vcfg.get("feat_vis") and "feat" in outs:
+        FeatVisualizer(os.path.join(out_dir, "vis_feat"),
+                       n_channels=int(vcfg.get("feat_vis_num") or 10)
+                       ).visualize(gstep, outs["feat"][-1])
+    if vcfg is not None and vcfg.get("make_results"):
+        rdir = os.path.join(out_dir, "vis", f"results_{gstep}")
+        os.makedirs(rdir, exist_ok=True)
+        viewVolume(to_host(batch["samples"]["input"][0, 0, ..., 0]),
+                   names=["input"], save_dir=rdir)
+        for k in ("T1", "label", "bias_field_log"):
+            if k in outs:
+                viewVolume(to_host(outs[k][0]).squeeze(), names=[f"pd_{k}"],
+                           save_dir=rdir)
+            if k in batch["targets"]:
+                # [0, 0]: the first item's first slice, as the JAX loop
+                viewVolume(to_host(batch["targets"][k][0, 0]).squeeze(),
+                           names=[f"gt_{k}"], save_dir=rdir)
+    TaskVisualizer(os.path.join(out_dir, "vis")).visualize(
+        gstep, {k: v[0] for k, v in batch["samples"].items()},
+        {k: v[0] for k, v in batch["targets"].items()},
+        {k: v for k, v in outs.items() if k != "feat"})
+
+
 def _refuse(what, why):
     raise NotImplementedError(
         f"{what} is not ported yet ({why}); the port trains on one device "
@@ -243,9 +290,6 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     if mesh is not None or fsdp:
         _refuse("mesh= / fsdp=True",
                 "the multi-GPU slice, ROADMAP Queue 1 item 5")
-    if vis_itr:
-        _refuse("vis_itr > 0 (the training visualizer)",
-                "utils/visualizer.py, ROADMAP Queue 1 item 4")
     losses_cfg = cfg.losses if getattr(cfg, "losses", None) else {}
     if twostage_models is not None:
         if losses_cfg.get("implicit_pathol"):
@@ -340,6 +384,8 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
             lr = float(lr_sched[min(gstep, len(lr_sched) - 1)])
             wd = float(wd_sched[min(gstep, len(wd_sched) - 1)])
             state, metrics = step_fn(state, batch, lr, wd)
+            if vis_itr and gstep % vis_itr == 0:
+                visualize_step(cfg, state.model, batch, gstep, out_dir)
             del batch
             metric_hist.append(metrics)
             if it % log_itr == 0:

@@ -75,6 +75,32 @@ Phases, one JSON line each:
                160^3, S=2, bf16; TWOSTAGE_ITR iterations), TRAIN_TIMED
                timed stream iterations, then TwoStageInferencer on the run's
                checkpoint serving one procedural head at 220^3 in bf16.
+ 16. evaluate_reference - the evaluation CLI (scripts/test.py) with a small
+               model on two procedural 48^3 heads with label-map and MNI-x
+               files, on the GPU and with --device cpu: two --models,
+               --spacings native 2,2,3 with --add_bf, hemisphere masking,
+               the deformed atlas, then --pred_glob scoring (is_seg dice,
+               recon psnr, ssim), compared file by file; MS-SSIM at 176^3
+               (its five levels need it) GPU against CPU; then a small
+               train() with vis_itr=1 (montage, feature strips, NIfTI
+               dumps) against the same run with vis_itr=0.
+ 17. evaluate - the evaluation CLI on the slice phase's L6 f_maps-64
+               weights (a .pth) over EVAL_HEADS procedural head(s) at the
+               220^3 window in bf16: --spacings native 1.5,1.5,5 --add_bf,
+               hemisphere masking, the 256^3 procedural atlas; then
+               --pred_glob scoring of out_label (dice over the 33
+               evaluation labels, K2) and out_T1 (psnr, ssim, ms_ssim
+               against the head; ms_ssim against the bias-field setup's
+               out_T1, which must not be 0); stage times per volume and
+               setup, scoring time per metric, peak memory, launch counts
+               of the serving and of the scoring.
+ 18. numerics_reference - the interpol family (grid_pull, grid_push,
+               grid_grad at 64^3, orders 1 and 3, bounds zero and dct2;
+               resize_spline, restrict_spline), synth_intensities (K2 f32
+               against its plain version, with injected noise) and
+               odeint_adjoint (rk4 values and gradients), GPU against CPU
+               at fp64; then device times of grid_pull and grid_push at
+               160^3 and synth_intensities at 192^3.
 Then the elapsed seconds per phase, the `kernels` summary line (launches on
 every path), the card's name and power limit, and the result line. Exits
 non-zero, printing no result, when a phase fails or no GPU is present.
@@ -90,6 +116,7 @@ import io
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -102,13 +129,20 @@ import torch
 import torch.nn.functional as F
 
 from brainfm_tpu_torch import kernels
+from brainfm_tpu_torch.config import load_config
 from brainfm_tpu_torch.infer import (Inferencer, TwoStageInferencer,
                                      get_deformed_atlas, prepare_image,
                                      tile_plan)
+from brainfm_tpu_torch.infer.prepare import acquisition_grid
 from brainfm_tpu_torch.models import (apply_processors, build_critic_from_cfg,
                                       build_inpaint_model, build_model,
                                       process_args)
 from brainfm_tpu_torch.models.criterion import make_criterion, weighted_total
+from brainfm_tpu_torch.models.evaluator import (EVAL_LABELS, index_lut,
+                                                ms_ssim_normalized)
+from brainfm_tpu_torch.ops.ode import odeint_adjoint
+from brainfm_tpu_torch.ops.pushpull import grid_grad, grid_pull, grid_push
+from brainfm_tpu_torch.ops.resize import resize_spline, restrict_spline
 from brainfm_tpu_torch.ops.interp import nearest3d, trilinear3d
 from brainfm_tpu_torch.ops.lut import lut_apply, lut_apply_plain
 from brainfm_tpu_torch.ops.warp import warp_labels, warp_volume
@@ -117,9 +151,11 @@ from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
                                      knobs_from_cfg, random_affine,
                                      random_nonlinear_field, sample_setup,
                                      synth_item)
+from brainfm_tpu_torch.scripts import test as eval_cli
 from brainfm_tpu_torch.scripts import train as train_script
 from brainfm_tpu_torch.synth.batch import stack_items
 from brainfm_tpu_torch.synth.datasets import DATASET_SETUPS, build_datasets
+from brainfm_tpu_torch.synth.gmm import synth_intensities
 from brainfm_tpu_torch.train import (build_optimizer, build_schedules,
                                      load_checkpoint, make_batch,
                                      make_train_step,
@@ -152,6 +188,10 @@ SEG_AGREE = 0.9999   # fp32 coordinate ties may flip a label at a boundary
 SERVE_WIN = (220, 220, 220)
 SERVE_SHAPE = (200, 240, 160)
 SERVE_VOXEL_MM = (1.2, 1.0, 1.5)
+# the inputs at 1 mm, where prepare_image's acquisition resample reads them
+# (after the resize to 1 mm, before the crop to the window)
+SERVE_MM_SHAPE = tuple(int(v) for v in np.round(
+    np.multiply(SERVE_SHAPE, SERVE_VOXEL_MM)))
 # voxel axis 0 along +A, axis 1 along -S, axis 2 along -R
 SERVE_AXES = np.array([[0, 0, -1], [1, 0, 0], [0, -1, 0]], np.float64)
 ATLAS_SHAPE = (256, 256, 256)   # 1 mm, as the reference's gca.mgz
@@ -188,6 +228,29 @@ TWOSTAGE_FIT = ("save_convs", 1)
 VARIANT_ITR = 2
 VARIANT_TIMED = 2
 TWOSTAGE_ITR = 4
+
+# evaluation: the acquisition spacing of the evaluate phase's low-
+# resolution setup, and its number of heads: each served volume writes
+# about 3 GB of .nii.gz (15 outputs at 220^3, the segmentation's 56
+# channels among them) in 4 setups, about 20 s a volume, so one head keeps
+# the phase near 120 s
+EVAL_SPACING = (1.5, 1.5, 5.0)
+EVAL_HEADS = 1
+# the evaluation CLI's mean scores, GPU against CPU: relative to the
+# score; a score nearer 0 than SCORE_FLOOR (a random model's SSIM lies near
+# 0, where the fp32 sums' rounding does not shrink with it) is held to
+# SCORE_TOL * SCORE_FLOOR absolute
+SCORE_TOL = 1e-4
+SCORE_FLOOR = 1e-2
+# the deformed atlas of evaluate_reference: each device renders from its
+# own predicted coordinates (x100, MODEL_TOL apart), so voxels where a
+# label flips change wholesale; this share must lie within REPLAY_TOL
+ATLAS_AGREE = 0.999
+# train(vis_itr=1) against vis_itr=0 on the card: cuDNN's backward is not
+# bitwise repeatable between two runs, the losses are held to this
+VIS_LOSS_TOL = 1e-6
+# the interpol family, GPU against CPU at fp64: sums in other orders
+NUMERICS_TOL = 1e-10
 
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
@@ -499,6 +562,25 @@ def kernel_cases(scfg, dev) -> list:
     del logits
     table = torch.tensor(LABELS_EXTRACEREBRAL, dtype=torch.int32, device=dev)
     cases.append(lut_case("lut_gather_i32 K=56 labels", table, None, amax))
+
+    # evaluation: the acquisition resample of the 1.5,1.5,5 setup (K1 C=1
+    # from the head at 1 mm, 240^3, onto its 160x160x48 grid) and the
+    # label one-hot's (10000,) lookup over a 220^3 label map; numerics:
+    # synth_intensities' (256, 2) [mus, sigmas] lookup over the 192^3
+    # subject frame
+    vol = torch.rand(SERVE_MM_SHAPE, generator=g, device=dev)
+    qgrid, _ = acquisition_grid(SERVE_MM_SHAPE, EVAL_SPACING, dev)
+    cases.append(Case(
+        "warp_linear_f32 C=1 acquisition", "warp_linear_f32",
+        lambda: warp_volume(vol, qgrid, default=0.0),
+        lambda: trilinear3d(vol, *qgrid, 0.0),
+        grid_sample_yardstick(vol, qgrid, "bilinear", zero),
+        linear_bytes(SERVE_MM_SHAPE, qgrid, 1), exact=False))
+    cases.append(lut_case("lut_gather_i32 K=10000 onehot",
+                          index_lut(EVAL_LABELS, dev), SERVE_WIN))
+    cases.append(lut_case("lut_gather_f32 K=256 C=2 intensities",
+                          torch.rand((256, 2), generator=g, device=dev) * 200,
+                          BANK))
     return cases
 
 
@@ -517,20 +599,28 @@ def atlas_grid(dev):
 
 
 SERVING_CASES = ("warp_linear_f32 C=1 atlas", "lut_gather_i32 K=56 labels")
+EVALUATE_CASES = ("warp_linear_f32 C=1 acquisition",
+                  "lut_gather_i32 K=10000 onehot")
+NUMERICS_CASES = ("lut_gather_f32 K=256 C=2 intensities",)
+# the `kernels` line's key for each path's own cases
+PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
+              "numerics_case": NUMERICS_CASES}
 
 
 def check_kernels(scfg, dev):
     """Each case against its plain version, timed; the first case of each
-    C function stands for it in the `kernels` line, the serving cases
-    beside it. Then the cold timing's floor (an empty pair of events) and
-    K1 C=12 on 4 deformation draws. Returns (records by C function, serving
-    records by C function)."""
-    recs, serving = {}, {}
+    C function stands for it in the `kernels` line, the serving,
+    evaluation and numerics cases beside it. Then the cold timing's floor
+    (an empty pair of events) and K1 C=12 on 4 deformation draws. Returns
+    (records by C function, {PATH_CASES key: records by C function})."""
+    recs = {}
+    by_path = {key: {} for key in PATH_CASES}
     for case in kernel_cases(scfg, dev):
         rec = run_case(case)
         recs.setdefault(case.fn, rec)
-        if case.name in SERVING_CASES:
-            serving[case.fn] = rec
+        for key, names in PATH_CASES.items():
+            if case.name in names:
+                by_path[key][case.fn] = rec
     emit({"phase": "kernel", "case": "cold timing floor (no call)",
           "ms_cold": time_ms(lambda: None, cold=True)})
     g = torch.Generator(dev).manual_seed(1)
@@ -545,7 +635,7 @@ def check_kernels(scfg, dev):
           "seeds": [0, 1, 2, 3], "ms": ms, "bound_ms": bound,
           "ms_min": min(ms), "ms_median": float(np.median(ms)),
           "ms_max": max(ms)})
-    return recs, serving
+    return recs, by_path
 
 
 def _max_err(a, b):
@@ -869,7 +959,7 @@ class CheckedInferencer(Inferencer):
                                   dtype=torch.int32, device=self.device)
         self.volumes = []
 
-    def _fetch_outputs(self, outs, exclude_keys):
+    def fetch_outputs(self, outs, exclude_keys):
         k2 = kernels.LAUNCHES["lut_gather_i32"]
         self.volumes.append({
             "shapes": {k: list(v.shape) for k, v in outs.items()},
@@ -878,7 +968,7 @@ class CheckedInferencer(Inferencer):
             "labels_in_table": bool(torch.isin(outs["label"],
                                                self.table).all()),
             "k2_launches": k2 - sum(v["k2_launches"] for v in self.volumes)})
-        return super()._fetch_outputs(outs, exclude_keys)
+        return super().fetch_outputs(outs, exclude_keys)
 
 
 def _synced_ms(fn):
@@ -947,7 +1037,7 @@ def run_serve(cfg, state, dev, power, tmp):
             out, post = _synced_ms(lambda: inf._post(raw, im[None, ..., None]))
         del raw
         t0 = time.perf_counter()
-        inf._fetch_outputs(out, ("segmentation",))
+        inf.fetch_outputs(out, ("segmentation",))
         stages.append({"prepare_ms": prep, "forward_ms": fwd,
                        "post_ms": post,
                        "fetch_ms": (time.perf_counter() - t0) * 1e3})
@@ -1946,41 +2036,443 @@ def run_twostage(dev, power, tmp, root):
     return launches
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    # fp32 parity needs full fp32 matmuls and convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    power = gpu_name_power()
-    built = kernels.build()
-    emit({"phase": "build", "seconds": max(b["seconds"] for b in
-                                           built.values()),
-          "ptxas": {k: b["ptxas"] for k, b in built.items()}, "gpu": power})
+def block_labels(head, seed, block=16):
+    """A label map over the head (0 outside it): blocks of `block` voxels,
+    each one of EVAL_LABELS' brain labels (a few left-hemisphere ones
+    among them)."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.choice(EVAL_LABELS[7:], [n // block + 1 for n in head.shape])
+    idx = np.ix_(*[np.arange(n) // block for n in head.shape])
+    return np.where(head > 0, coarse[idx], 0).astype(np.int32)
 
-    cfg = process_args(flagship_cfg())   # derives cfg.tasks
-    scfg = SynthStatic.from_cfg(cfg)
-    elapsed, t0 = {}, time.perf_counter()
 
-    def lap(name):
-        nonlocal t0
-        elapsed[name] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+def eval_inputs(root, n, shape, voxel_mm, seed, dev):
+    """n procedural heads under root/data as the evaluation CLI reads them:
+    sub<i>.nii.gz, its label map sub<i>.seg.nii.gz (block_labels) and its
+    MNI-x map sub<i>.mni_reg.x.nii.gz (a step from -1 to 0.7 across the
+    third voxel axis: no resampled value lies near the mask's threshold
+    0). Returns the data directory."""
+    data = os.path.join(root, "data")
+    os.makedirs(data, exist_ok=True)
+    aff = serve_affine(shape, voxel_mm)
+    x = np.where(np.arange(shape[2]) < shape[2] // 2, -1.0, 0.7)
+    x = (x[None, None] * np.ones(shape)).astype(np.float32)
+    for i in range(n):
+        head = procedural_head(shape, voxel_mm, seed + i, dev)
+        stem = os.path.join(data, f"sub{i}")
+        save_nifti(stem + ".nii.gz", head, aff)
+        save_nifti(stem + ".seg.nii.gz", block_labels(head, seed + i), aff)
+        save_nifti(stem + ".mni_reg.x.nii.gz", x, aff)
+    return data
 
-    recs, serving = check_kernels(scfg, dev)
-    lap("kernel")
-    check_slice_reference(cfg, dev)
-    lap("slice_reference")
-    slice_launches, state = run_slice(cfg, dev, power)
-    lap("slice")
+
+def write_ground_truth(data, setup_dir, n, win, dev):
+    """Beside each subject's predictions in `setup_dir`, the ground truth
+    the scoring reads: its prepared label map (out_label.gt) and prepared
+    image (out_T1.gt)."""
+    for i in range(n):
+        stem = os.path.join(data, f"sub{i}")
+        d = os.path.join(setup_dir, f"sub{i}")
+        seg, aff, _, _ = prepare_image(stem + ".seg.nii.gz", list(win),
+                                       is_label=True, rescale=False,
+                                       device=dev)
+        save_nifti(os.path.join(d, "out_label.gt.nii.gz"),
+                   seg.cpu().numpy().astype(np.int32), aff)
+        im, aff, _, _ = prepare_image(stem + ".nii.gz", list(win),
+                                      device=dev)
+        save_nifti(os.path.join(d, "out_T1.gt.nii.gz"), im.cpu().numpy(),
+                   aff)
+
+
+def _tree(root):
+    out = []
+    for d, _, fs in os.walk(root):
+        out += [os.path.relpath(os.path.join(d, f), root) for f in fs]
+    return sorted(out)
+
+
+def _score(setup_dir, pattern, metrics, save_dir, dev, is_seg=False,
+           gt_suffix=".gt.nii.gz"):
+    """The CLI's --pred_glob scoring of setup_dir/*/<pattern>.nii.gz
+    against <pattern><gt_suffix> beside each; returns (mean scores, the
+    CLI's wall ms)."""
+    argv = ["--pred_glob", os.path.join(setup_dir, "*", pattern + ".nii.gz"),
+            "--gt_suffix", gt_suffix, "--metrics", *metrics, "--save_dir",
+            save_dir, "--device", str(dev)] + (["--is_seg"] if is_seg else [])
+    t0 = time.perf_counter()
+    eval_cli.main(argv)
+    ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(save_dir, "scores.json")) as f:
+        return json.load(f)["mean"], ms
+
+
+def small_yaml(tmp):
+    path = os.path.join(tmp, "small_model.yaml")
+    with open(path, "w") as f:
+        f.write("f_maps: 8\nnum_levels: 3\ntask_f_maps: [8]\n")
+    return path
+
+
+def eval_cfg(*extra):
+    """The evaluation CLI's config: the three default YAMLs and `extra`."""
+    return load_config([os.path.join(ROOT, "cfgs/generator/default.yaml"),
+                        os.path.join(ROOT, "cfgs/trainer/default_train.yaml"),
+                        os.path.join(ROOT, "cfgs/trainer/default_val.yaml"),
+                        *extra])
+
+
+def check_evaluate_reference(dev, tmp):
+    """The evaluation CLI on the GPU and with --device cpu (fp32, TF32
+    off): a small model (two .pth files of seeds 0 and 1) over two
+    procedural 48^3 heads at 1 mm (a label map that is not resampled
+    cannot flip on an fp32 knife edge), --spacings native 2,2,3 with
+    --add_bf, hemisphere masking and the atlas. Every written volume
+    within MODEL_TOL (labels and masks on SEG_AGREE of the voxels, the
+    deformed atlas on ATLAS_AGREE within REPLAY_TOL), the scoring of the
+    native setup (seg dice, recon psnr and ssim) within SCORE_TOL
+    relative (SCORE_FLOOR says where it turns absolute). Then
+    ms_ssim at 176^3, GPU against CPU, and a small train() with vis_itr=1
+    against vis_itr=0."""
+    root = os.path.join(tmp, "evaluate_reference")
+    os.makedirs(root)
+    win = (48, 48, 48)
+    data = eval_inputs(root, 2, (44, 52, 40), (1.0, 1.0, 1.0), 50, dev)
+    atlas = os.path.join(root, "atlas.mgz")
+    write_mgz(atlas, procedural_atlas((64, 64, 64), 6, dev), (3.0, 3.0, 3.0))
+    small = small_yaml(root)
+    models = []
+    for i, name in enumerate(("a", "b")):
+        torch.manual_seed(i)
+        _, model = build_model(eval_cfg(small), device="cpu")
+        path = os.path.join(root, f"{name}.pth")
+        torch.save({"model": model.state_dict()}, path)
+        models.append(f"{name}={path}")
+    common = ["--input_glob", os.path.join(data, "sub?.nii.gz"),
+              "--models", *models, "--spacings", "native", "2,2,3",
+              "--add_bf", "--hemis_seg_suffix", ".seg.nii.gz",
+              "--atlas", atlas, "--win", *map(str, win),
+              "--train_cfg", small]
+    trees = {}
+    for label, d in (("gpu", dev), ("cpu", "cpu")):
+        out = os.path.join(root, f"out_{label}")
+        kernels.reset_launches()
+        eval_cli.main([*common, "--save_dir", out, "--device", str(d)])
+        if label == "gpu":
+            launches = dict(kernels.LAUNCHES)
+        trees[label] = (out, d)
+    g, c = trees["gpu"][0], trees["cpu"][0]
+    bad = {}
+    files = _tree(g)
+    # per setup and head: the outputs, the deformed atlas, the mask
+    if files != _tree(c) or len(files) != 8 * 2 * (len(SERVE_HEADS) + 2):
+        bad["files"] = (len(files), len(_tree(c)))
+    errs = {}
+    for rel in files:
+        a = torch.from_numpy(load_nifti(os.path.join(g, rel))[0].copy())
+        b = torch.from_numpy(load_nifti(os.path.join(c, rel))[0].copy())
+        name = os.path.basename(rel)[:-len(".nii.gz")]
+        if name in ("out_label", "hemis_mask"):
+            v = float((a == b).float().mean())
+            errs[name] = min(errs.get(name, 1.0), v)
+            if v < SEG_AGREE:
+                bad[rel] = v
+        elif name == "out_deformed_atlas":
+            v = float(((a - b).abs() <= REPLAY_TOL).float().mean())
+            errs[name] = min(errs.get(name, 1.0), v)
+            if v < ATLAS_AGREE:
+                bad[rel] = v
+        else:
+            v = _rel_err(a, b)
+            errs[name] = max(errs.get(name, 0.0), v)
+            if not v <= MODEL_TOL:
+                bad[rel] = v
+    scores = {}
+    for label, (out, d) in trees.items():
+        setup = os.path.join(out, "a_1-1-1")
+        write_ground_truth(data, setup, 2, win, "cpu")
+        seg, _ = _score(setup, "out_label", ["seg_dice"],
+                        os.path.join(out, "scores_seg"), d, is_seg=True)
+        rec, _ = _score(setup, "out_T1", ["recon_psnr", "recon_ssim"],
+                        os.path.join(out, "scores_recon"), d)
+        scores[label] = {**seg, **rec}
+    score_rel = {k: abs(v - scores["cpu"][k])
+                 / max(abs(scores["cpu"][k]), SCORE_FLOOR)
+                 for k, v in scores["gpu"].items()}
+    bad |= {k: v for k, v in score_rel.items() if not v <= SCORE_TOL}
+
+    # ms_ssim needs 176^3 for its five levels (11 voxels at the coarsest)
+    head = torch.from_numpy(procedural_head((176,) * 3, (1.0,) * 3, 9, dev))
+    noisy = head + 5 * torch.from_numpy(np.random.default_rng(9)
+                                        .standard_normal((176,) * 3)
+                                        .astype(np.float32))
+    ms = {label: float(ms_ssim_normalized(noisy.to(d), head.to(d)))
+          for label, d in (("gpu", dev), ("cpu", "cpu"))}
+    ms_rel = abs(ms["gpu"] - ms["cpu"]) / abs(ms["cpu"])
+    if not ms_rel <= SCORE_TOL:
+        bad["ms_ssim"] = ms
+
+    vis = check_vis_train(dev, root)
+    bad |= vis.pop("bad")
+    for k in ("warp_linear_f32", "lut_gather_i32"):
+        if launches[k] < 1:
+            bad["launches"] = launches
+    emit({"phase": "evaluate_reference", "win": list(win), "heads": 2,
+          "models": 2, "setups": 4, "f_maps": 8, "num_levels": 3,
+          "agreement": errs, "scores": scores, "score_rel": score_rel,
+          "ms_ssim_176": ms, "ms_ssim_rel": ms_rel, "vis_train": vis,
+          "launches": launches, "model_tol": MODEL_TOL,
+          "seg_agree_min": SEG_AGREE, "atlas_agree_min": ATLAS_AGREE,
+          "score_tol": SCORE_TOL, "score_floor": SCORE_FLOOR})
+    if bad:
+        raise AssertionError(f"evaluate_reference failed: {bad}")
+
+
+def check_vis_train(dev, root):
+    """A small model (f_maps 8, 3 levels, 32^3) through train() for 2
+    steps with vis_itr=1, `visualizer.feat_vis` and `make_results`, and
+    again with vis_itr=0: the montages, feature strips and NIfTI dumps
+    written, the losses within VIS_LOSS_TOL. Returns a record with 'bad'."""
+    cfg = small_model_cfg()
+    cfg.num_levels, cfg.generator.size = 3, [32, 32, 32]
+    cfg.n_epochs, cfg.remat = 1, False
+    cfg.visualizer.feat_vis, cfg.visualizer.make_results = True, True
+    bank = SubjectBank((48, 48, 48))
+    bank.add_debug_subject(seed=0, extent=(40, 40, 40))
+    steps, epoch = {}, {}
+    for vis in (1, 0):
+        torch.manual_seed(0)
+        c, model = build_model(copy.deepcopy(cfg), device=dev)
+        _, w, fn = make_criterion(c)
+        out = os.path.join(root, f"vis_train_{vis}")
+        train(c, model, w, fn, bank, out, itr_per_epoch=2, n_val_items=1,
+              log_itr=1, vis_itr=vis, seed=0)
+        steps[vis] = _read_steps(out)
+        with open(os.path.join(out, "log.txt")) as f:
+            line = json.loads(f.readline())
+        # the epoch's mean losses, at full precision (train.log rounds)
+        epoch[vis] = {k: v for k, v in line.items()
+                      if k.startswith(("train_loss", "val_loss"))}
+    files = _tree(os.path.join(root, "vis_train_1"))
+    want = {"vis/vis_0000000.png", "vis/vis_0000001.png",
+            "vis_feat/feat_0000000.png", "vis_feat/feat_0000001.png",
+            "vis/results_1/input.nii.gz", "vis/results_1/pd_T1.nii.gz",
+            "vis/results_1/gt_T1.nii.gz"}
+    rel = max(abs(v - epoch[0][k]) / max(abs(epoch[0][k]), 1e-30)
+              for k, v in epoch[1].items())
+    bad = {}
+    if not want <= set(files):
+        bad["vis_files"] = sorted(want - set(files))
+    if (epoch[1].keys() != epoch[0].keys() or not rel <= VIS_LOSS_TOL
+            or [len(steps[v]) for v in (1, 0)] != [2, 2]
+            or any(st["skipped"] for v in (1, 0) for st in steps[v])):
+        bad["vis_losses"] = {"epoch": epoch, "steps": steps}
+    return {"epoch_losses": epoch, "loss_rel": rel,
+            "vis_files": [f for f in files if f.startswith("vis")],
+            "bad": bad}
+
+
+def run_evaluate(dev, power, tmp, ckpt):
+    """The evaluation CLI on the L6 f_maps-64 weights `ckpt` over
+    EVAL_HEADS procedural head(s) (SERVE_SHAPE at SERVE_VOXEL_MM, a
+    non-RAS affine) at the 220^3 window in bf16: --spacings native
+    1.5,1.5,5 --add_bf (4 setups), hemisphere masking, the 256^3
+    procedural atlas, every output written as .nii.gz; then the scoring
+    of the native setup's out_label (dice over the 33 evaluation labels,
+    one-hot through K2) and out_T1 (psnr, ssim, ms_ssim at 220^3), one
+    CLI run per metric; the random model's out_T1 is uncorrelated with the
+    head (its ms_ssim clamps to 0), so out_T1 is also scored by ms_ssim
+    against the same model's out_T1 under the bias field (the prediction's
+    consistency, which must not be 0). Launch counts of the serving and of
+    the scoring (the ground truth's prepares left out), peak memory over
+    the phase."""
+    root = os.path.join(tmp, "evaluate")
+    os.makedirs(root)
+    data = eval_inputs(root, EVAL_HEADS, SERVE_SHAPE, SERVE_VOXEL_MM, 40, dev)
+    atlas = os.path.join(root, "atlas.mgz")
+    write_mgz(atlas, procedural_atlas(ATLAS_SHAPE, 7, dev))
+    out = os.path.join(root, "out")
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eval_cli.main(["--input_glob", os.path.join(data, "sub?.nii.gz"),
+                   "--gen_cfg", os.path.join(ROOT, "cfgs/generator/train/"
+                                                   "brain_id.yaml"),
+                   "--train_cfg", os.path.join(ROOT, "cfgs/trainer/train/"
+                                                     "joint.yaml"),
+                   "--models", f"joint={ckpt}", "--spacings", "native",
+                   ",".join(str(v) for v in EVAL_SPACING), "--add_bf",
+                   "--hemis_seg_suffix", ".seg.nii.gz", "--atlas", atlas,
+                   "--bf16", "--device", str(dev), "--save_dir", out],
+                  stats=stats)
+    infer_s = time.perf_counter() - t0
+    serve_launches = dict(kernels.LAUNCHES)
+    peak_serve = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    bad = []
+    tags = [eval_cli.setup_tag("joint", sp, bf) for sp, bf in
+            eval_cli.parse_setups(["native", ",".join(
+                str(v) for v in EVAL_SPACING)], [False, True])]
+    want = sorted([f"out_{k}.nii.gz" for k in SERVE_HEADS]
+                  + ["out_deformed_atlas.nii.gz", "hemis_mask.nii.gz"])
+    for tag in tags:
+        for i in range(EVAL_HEADS):
+            got = sorted(os.listdir(os.path.join(out, tag, f"sub{i}")))
+            if got != want:
+                bad.append(f"{tag}/sub{i}: {got}")
+
+    setup = os.path.join(out, "joint_1-1-1")
+    write_ground_truth(data, setup, EVAL_HEADS, SERVE_WIN, dev)
+    for i in range(EVAL_HEADS):
+        shutil.copyfile(
+            os.path.join(out, "joint_BF_1-1-1", f"sub{i}", "out_T1.nii.gz"),
+            os.path.join(setup, f"sub{i}", "out_T1.bf.nii.gz"))
+    kernels.reset_launches()
+    scores, score_ms = {}, {}
+    for key, metric, pattern, seg, gt in (
+            ("seg_dice", "seg_dice", "out_label", True, ".gt.nii.gz"),
+            ("recon_psnr", "recon_psnr", "out_T1", False, ".gt.nii.gz"),
+            ("recon_ssim", "recon_ssim", "out_T1", False, ".gt.nii.gz"),
+            ("recon_ms_ssim", "recon_ms_ssim", "out_T1", False,
+             ".gt.nii.gz"),
+            ("recon_ms_ssim_vs_bf", "recon_ms_ssim", "out_T1", False,
+             ".bf.nii.gz")):
+        mean, score_ms[key] = _score(
+            setup, pattern, [metric], os.path.join(root, f"scores_{key}"),
+            dev, is_seg=seg, gt_suffix=gt)
+        scores[key] = mean[metric]
+    score_launches = dict(kernels.LAUNCHES)
+    launches = {k: v + score_launches[k] for k, v in serve_launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    if not all(np.isfinite(v) for v in scores.values()):
+        bad.append(f"scores {scores}")
+    if not scores["recon_ms_ssim_vs_bf"] > 0:
+        bad.append(f"degenerate ms_ssim of out_T1 against its bias-field "
+                   f"twin: {scores}")
+    for k in ("warp_linear_f32", "lut_gather_i32"):
+        if launches[k] < 1:
+            bad.append(f"evaluate path missed {k}: {launches}")
+    emit({"phase": "evaluate", "heads": EVAL_HEADS, "win": list(SERVE_WIN),
+          "input_shape": list(SERVE_SHAPE), "voxel_mm": list(SERVE_VOXEL_MM),
+          "setups": tags, "dtype": "bf16", "written": "every output, .nii.gz",
+          "infer_s": infer_s,
+          "volume_ms": {t: [v["volume_ms"] for v in stats[t]] for t in tags},
+          "prepare_ms": {t: [v["prepare_ms"] for v in stats[t]] for t in tags},
+          "forward_ms": {t: [v["forward_ms"] for v in stats[t]] for t in tags},
+          "write_ms": {t: [v["write_ms"] for v in stats[t]] for t in tags},
+          "score_ms": score_ms, "scores": scores,
+          "peak_mem_gib": peak, "peak_mem_gib_serve": peak_serve,
+          "launches_serve": serve_launches, "launches_score": score_launches,
+          "launches": launches,
+          "gpu": power})
+    if bad:
+        raise AssertionError(f"evaluate phase failed: {bad}")
+    return launches
+
+
+def run_numerics(dev, power):
+    """The interpol family, synth_intensities and odeint_adjoint on the
+    card against the CPU: grid_pull, grid_push and grid_grad at 64^3
+    (orders 1 and 3, bounds zero and dct2), resize_spline (x1.5, order 3,
+    prefiltered) and restrict_spline (x0.5) at fp64 within NUMERICS_TOL;
+    synth_intensities with injected noise bitwise its plain version (K2
+    f32 on the card; its launches are this path's); odeint_adjoint rk4
+    values and fp64 gradients. Then device times (CUDA events) of fp32
+    grid_pull and grid_push at 160^3, C=1, orders 1 and 3, and of
+    synth_intensities at 192^3. Returns the path's launches."""
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.standard_normal((64, 64, 64)))
+    grid = torch.from_numpy(rng.uniform(-2.0, 65.0, (64, 64, 64, 3)))
+    errs = {}
+    for order in (1, 3):
+        for bound in ("zero", "dct2"):
+            kw = dict(interpolation=order, bound=bound)
+            for name, fn in (
+                    ("pull", lambda i, gr: grid_pull(i, gr, **kw)),
+                    ("push", lambda i, gr: grid_push(i, gr, (64, 64, 64),
+                                                     **kw)),
+                    ("grad", lambda i, gr: grid_grad(i, gr, **kw))):
+                errs[f"{name} order {order} {bound}"] = _rel_err(
+                    fn(img.to(dev), grid.to(dev)), fn(img, grid))
+    errs["resize_spline"] = _rel_err(
+        resize_spline(img.to(dev), factor=1.5, interpolation=3),
+        resize_spline(img, factor=1.5, interpolation=3))
+    errs["restrict_spline"] = _rel_err(
+        restrict_spline(img.to(dev), factor=0.5, interpolation=3),
+        restrict_spline(img, factor=0.5, interpolation=3))
+
+    # odeint_adjoint, rk4: values and fp64 gradients in y0 and k
+    def ode(d):
+        y0 = torch.from_numpy(rng_y0).to(d).requires_grad_()
+        k = torch.tensor(0.7, dtype=torch.float64, device=d,
+                         requires_grad=True)
+        out = odeint_adjoint(lambda t, y: -k * y + float(np.sin(t)) * y ** 2,
+                             y0, np.linspace(0.0, 1.0, 6), method="rk4")
+        (out[-1] ** 2).sum().backward()
+        return out.detach(), y0.grad, k.grad
+
+    rng_y0 = rng.standard_normal((16, 16, 16))
+    for name, a, b in zip(("odeint", "odeint_grad_y0", "odeint_grad_k"),
+                          ode(dev), ode("cpu")):
+        errs[name] = _rel_err(a, b)
+
+    lab = torch.from_numpy(rng.choice(np.array(
+        [0, 2, 3, 4, 41, 77, 120, 251, 255, 300], np.int32), (64, 64, 64)))
+    mus = torch.from_numpy((25 + 200 * rng.random(256)).astype(np.float32))
+    sig = torch.from_numpy((5 + 20 * rng.random(256)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((64, 64, 64))
+                             .astype(np.float32))
+    kernels.reset_launches()
+    got = synth_intensities(Draws(), lab.to(dev), mus.to(dev), sig.to(dev),
+                            noise=noise.to(dev))
+    launches = dict(kernels.LAUNCHES)
+    want = synth_intensities(Draws(), lab, mus, sig, noise=noise)
+    intens_err = _max_err(got, want)
+
+    # device times, fp32, C=1
+    g = torch.Generator(dev).manual_seed(0)
+    n = 160
+    v160 = torch.randn((n, n, n), generator=g, device=dev)
+    g160 = torch.rand((n, n, n, 3), generator=g, device=dev) * (n - 1)
+    times = {}
+    for order in (1, 3):
+        times[f"grid_pull order {order}"] = time_ms(
+            lambda o=order: grid_pull(v160, g160, o, "dct2"), reps=5,
+            warmup=1)
+        times[f"grid_push order {order}"] = time_ms(
+            lambda o=order: grid_push(v160, g160, (n, n, n), o, "dct2"),
+            reps=5, warmup=1)
+    lab192 = torch.randint(0, 256, BANK, generator=g, device=dev,
+                           dtype=torch.int32)
+    mus_d, sig_d = mus.to(dev), sig.to(dev)
+    times["synth_intensities 192^3"] = time_ms(
+        lambda: synth_intensities(Draws(g, dev), lab192, mus_d, sig_d),
+        reps=10)
+    bad = {k: v for k, v in errs.items() if not v <= NUMERICS_TOL}
+    if intens_err != 0:
+        bad["synth_intensities"] = intens_err
+    if launches["lut_gather_f32"] < 1:
+        bad["launches"] = launches
+    emit({"phase": "numerics_reference", "size": [64, 64, 64],
+          "rel_err": errs, "synth_intensities_max_abs_err": intens_err,
+          "numerics_tol": NUMERICS_TOL, "ms": times, "time_size": [n] * 3,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"numerics_reference failed: {bad}")
+    return launches
+
+
+def run_after_slice(dev, power, state, ckpt, lap):
+    """The phases after the slice, each ended by lap(name); the slice's
+    `state` is served by `serve`, its .pth `ckpt` by `evaluate`. Returns
+    the launches by path."""
     with tempfile.TemporaryDirectory() as tmp:
         check_serve_reference(dev, tmp)
         lap("serve_reference")
         serve_launches = run_serve(flagship_cfg(), state, dev, power, tmp)
         lap("serve")
-    del state
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         check_train_reference(dev, tmp)
@@ -2006,11 +2498,63 @@ def main():
         lap("twostage_reference")
         twostage_launches = run_twostage(dev, power, tmp, root)
         lap("twostage")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_evaluate_reference(dev, tmp)
+        lap("evaluate_reference")
+        torch.cuda.empty_cache()
+        evaluate_launches = run_evaluate(dev, power, tmp, ckpt)
+        lap("evaluate")
+    torch.cuda.empty_cache()
+    numerics_launches = run_numerics(dev, power)
+    lap("numerics_reference")
+    return {"serve": serve_launches, "train": train_launches,
+            "stream": stream_launches, "pathology": pathology_launches,
+            "variants": variants_launches, "twostage": twostage_launches,
+            "evaluate": evaluate_launches, "numerics": numerics_launches}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    # fp32 parity needs full fp32 matmuls and convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    power = gpu_name_power()
+    built = kernels.build()
+    emit({"phase": "build", "seconds": max(b["seconds"] for b in
+                                           built.values()),
+          "ptxas": {k: b["ptxas"] for k, b in built.items()}, "gpu": power})
+
+    cfg = process_args(flagship_cfg())   # derives cfg.tasks
+    scfg = SynthStatic.from_cfg(cfg)
+    elapsed, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        elapsed[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    recs, by_path = check_kernels(scfg, dev)
+    lap("kernel")
+    check_slice_reference(cfg, dev)
+    lap("slice_reference")
+    slice_launches, state = run_slice(cfg, dev, power)
+    lap("slice")
+    # the slice's weights, served by the evaluate phase as a .pth
+    ckdir = tempfile.mkdtemp()
+    try:
+        ckpt = os.path.join(ckdir, "slice_l6.pth")
+        torch.save({"model": state}, ckpt)
+        state = {k: v.cpu() for k, v in state.items()}
+        paths = run_after_slice(dev, power, state, ckpt, lap)
+        del state
+    finally:
+        shutil.rmtree(ckdir)
     emit({"phase": "elapsed_s", **elapsed})
-    paths = {"slice": slice_launches, "serve": serve_launches,
-             "train": train_launches, "stream": stream_launches,
-             "pathology": pathology_launches, "variants": variants_launches,
-             "twostage": twostage_launches}
+    paths = {"slice": slice_launches, **paths}
 
     keys = ("case", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
@@ -2022,8 +2566,9 @@ def main():
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "serving_case": ({k: serving[name][k] for k in keys}
-                          if name in serving else None)}
+         **{key: ({k: cases[name][k] for k in keys}
+                  if name in cases else None)
+            for key, cases in by_path.items()}}
         for name, r in recs.items()]})
     print(gpu_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

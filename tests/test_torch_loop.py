@@ -356,10 +356,11 @@ def test_cli_debug_run_on_cpu(tmp_path, capsys, small_bank):
                                 {"twostage_models": "the pair"},
                                 {"vis_itr": 5}])
 def test_train_refuses_what_is_not_ported(tmp_path, kw):
-    """mesh=, fsdp and the visualizer raise. Two cases that were refused
-    before their slices were ported now train: stream= (two debug
-    datasets' stream, no bank) and twostage_models= (the joint config on
-    an 'a+b' backbone: stage 0 learns through stage 1's losses alone)."""
+    """mesh= and fsdp raise. Three cases that were refused before their
+    slices were ported now train: stream= (two debug datasets' stream, no
+    bank), twostage_models= (the joint config on an 'a+b' backbone: stage
+    0 learns through stage 1's losses alone) and vis_itr (the montage,
+    the feature strips of the config's `visualizer` section)."""
     torch.manual_seed(0)
     cfg, model = build_model(_small_train_cfg(1), device="cpu")
     _, w, fn = make_criterion(cfg)
@@ -389,6 +390,13 @@ def test_train_refuses_what_is_not_ported(tmp_path, kw):
         assert state.step == 2
         line = json.loads(open(tmp_path / "log.txt").read())
         assert np.isfinite(line["val_loss_total"])
+        return
+    if "vis_itr" in kw:
+        state = loop.train(cfg, model, w, fn, _bank(), str(tmp_path),
+                           itr_per_epoch=2, n_val_items=1, **kw)
+        assert state.step == 2
+        assert os.listdir(tmp_path / "vis") == ["vis_0000000.png"]
+        assert os.listdir(tmp_path / "vis_feat") == ["feat_0000000.png"]
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         loop.train(cfg, model, w, fn, None, str(tmp_path), **kw)

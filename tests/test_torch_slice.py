@@ -237,10 +237,14 @@ def test_chip_smoke_fails_without_gpu():
 
 def test_entry_points_refuse_cpu_fallback(tmp_path):
     """Without CUDA the entry points raise unless asked for the CPU:
-    build_model, the subject bank, the Inferencer, prepare_image and the
-    serving CLI."""
+    build_model, the subject bank, the Inferencer, prepare_image, the
+    serving CLI, the Evaluator, the evaluation CLI, the generator demo and
+    the device-memory counters."""
     from brainfm_tpu_torch.infer import Inferencer, prepare_image
-    from brainfm_tpu_torch.scripts import demo_test
+    from brainfm_tpu_torch.models.evaluator import Evaluator
+    from brainfm_tpu_torch.scripts import demo_generator, demo_test
+    from brainfm_tpu_torch.scripts import test as test_cli
+    from brainfm_tpu_torch.utils import profiling
     from brainfm_tpu_torch.utils.nifti import save_nifti
 
     if torch.cuda.is_available():
@@ -261,3 +265,14 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
     assert prepare_image(img, device="cpu")[0].device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         demo_test.main([img, "--save_dir", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(["recon_psnr"]).eval_files(img, img)
+    assert Evaluator(["recon_l1"], device="cpu").eval_files(
+        img, img) == {"recon_l1": 0.0}
+    for argv in (["--input_glob", img], ["--pred_glob", img]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            test_cli.main([*argv, "--save_dir", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo_generator.main(["--save_dir", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.device_memory_stats()
