@@ -1,3 +1,3 @@
-from .config import AttrDict, load_config, merge_missing
+from .config import AttrDict, load_config, merge_missing, update_out_dir
 
-__all__ = ["AttrDict", "load_config", "merge_missing"]
+__all__ = ["AttrDict", "load_config", "merge_missing", "update_out_dir"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 import copy
 import os
 import re
+import time
 
 import yaml
 
@@ -93,3 +94,22 @@ def merge_missing(dst: dict, src: dict) -> dict:
         elif hasattr(dst[k], "items") and hasattr(v, "items"):
             merge_missing(dst[k], v)
     return dst
+
+
+def update_out_dir(cfg: AttrDict, out_root: str = "outs") -> AttrDict:
+    """Timestamp the run's output directory: cfg.out_dir =
+    <out_root>/<job_name>-<exp_name>-<YYYYmmdd-HHMMSS>. Under
+    torch.distributed every rank takes rank 0's time (broadcast), so a run
+    whose ranks straddle a second boundary still writes one directory."""
+    t = int(time.time())
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        box = [t]
+        dist.broadcast_object_list(box, src=0)
+        t = int(box[0])
+    stamp = time.strftime("%Y%m%d-%H%M%S", time.localtime(t))
+    cfg.out_dir = os.path.join(out_root, f"{cfg.job_name or 'job'}-"
+                               f"{cfg.exp_name or 'exp'}-{stamp}")
+    return cfg

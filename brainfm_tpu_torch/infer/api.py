@@ -8,6 +8,11 @@ of `postprocess` have no counterpart. The deformed atlas is a K1 warp
 (ops/warp.py::warp_volume) and the label map a K2 lookup (in `postprocess`).
 `TwoStageInferencer` serves the two-stage pair (stage-0 mask, masked
 mask-conditioned stage 1) the same way.
+
+`mesh=` (parallel/mesh.py, one process per rank) serves across GPUs: a
+'space' axis splits each volume's D axis into slabs (parallel/spatial.py;
+the outputs are gathered whole on every rank), and `evaluate_batch` runs
+one volume per 'data' rank. Every rank holds the same weights.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from ..device import exact_fp32, resolve_device
 from ..models.build import (build_inpaint_model, build_model, postprocess,
                             process_outputs)
 from ..models.params_io import load_pth
+from ..parallel.mesh import axis_index, axis_size, local_slice
+from ..parallel.spatial import gather_outputs, slab_of, space_scope
 from ..train.checkpoint import (MODEL_FILE, is_checkpoint_dir,
                                 latest_checkpoint, load_model_weights)
 from ..ops.warp import warp_volume
@@ -47,17 +54,23 @@ class Inferencer:
     or a checkpoint directory of `train/checkpoint.py` (its model
     weights); without one the weights are random, from seed 0, alike on
     every device.
+    mesh: a DeviceMesh of parallel.make_mesh: its 'space' axis shards each
+    volume's D axis over the ranks (the deep levels that do not split
+    run whole), its 'data' axis takes one volume per rank in
+    evaluate_batch; a data-only mesh serves a single volume whole on
+    every rank, as the JAX package replicates it.
     """
 
     def __init__(self, cfg, ckpt_path: str | None = None,
                  compute_dtype=torch.float32, exact: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: one of "
                              f"{_DTYPES}")
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.exact = exact
+        self.mesh = mesh
         # parameters are initialised on the CPU and then moved, so one seed
         # gives every device the same weights
         with torch.random.fork_rng(devices=[]):
@@ -94,15 +107,20 @@ class Inferencer:
 
     def _forward(self, x, keep_feat: bool = True):
         """Model + output processors on x (B,D,H,W,1). keep_feat=False drops
-        the decoder feature pyramids as soon as the heads have run."""
+        the decoder feature pyramids as soon as the heads have run. Under
+        a mesh with a 'space' axis the model runs on this rank's D slab
+        and its outputs are gathered whole."""
         bf16 = self.compute_dtype == torch.bfloat16
         with self._precision():
-            with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                                enabled=bf16):
-                out = self.model(x)
+            with space_scope(self.mesh) as sc, \
+                    torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                   enabled=bf16):
+                out = self.model(x if sc is None else slab_of(x, sc))
             if not keep_feat:
                 out = {k: v for k, v in out.items()
                        if not k.startswith("feat")}
+            if sc is not None:
+                out = gather_outputs(out, sc)
             if bf16:
                 out = {k: v if k.startswith("feat") else v.float()
                        for k, v in out.items()}
@@ -127,17 +145,48 @@ class Inferencer:
             return out["feat"][-1]
         return self._post(out, x) if run_postprocess else out
 
+    def _data(self):
+        """(data ranks, this rank's data index); (1, 0) without a mesh."""
+        if self.mesh is None:
+            return 1, 0
+        return axis_size(self.mesh, "data"), axis_index(self.mesh, "data")
+
+    def _local_batch(self, x, run_postprocess, keep_feat):
+        """This data rank's share of a batch through the model (and
+        postprocess)."""
+        n, r = self._data()
+        if x.shape[0] % n:
+            raise ValueError(
+                f"batch of {x.shape[0]} volumes cannot shard over the "
+                f"mesh 'data' axis of size {n} — pass a multiple "
+                "(evaluate_path pads its groups for you)")
+        x = local_slice(x, n, r, 0)
+        out = self._forward(x, keep_feat=keep_feat)
+        return self._post(out, x) if run_postprocess else out
+
     @torch.inference_mode()
     def evaluate_batch(self, vols, run_postprocess: bool = True,
                        keep_feat: bool = False):
-        """B same-shape whole volumes (B,D,H,W[,1]) in one pass."""
+        """B same-shape whole volumes (B,D,H,W[,1]) in one pass. With a
+        mesh, one volume per 'data' rank (B a multiple of the axis), and
+        every rank returns the whole batch's outputs."""
         x = self._as_input(vols)
         if x.dim() == 4:
             x = x[..., None]
         if x.dim() != 5:
             raise ValueError(f"expected (B,D,H,W[,1]), got {tuple(x.shape)}")
-        out = self._forward(x, keep_feat=keep_feat)
-        return self._post(out, x) if run_postprocess else out
+        out = self._local_batch(x, run_postprocess, keep_feat)
+        if self._data()[0] == 1:
+            return out
+        group = self.mesh.get_group("data")
+
+        def gather(v):
+            parts = [torch.empty_like(v) for _ in range(self._data()[0])]
+            torch.distributed.all_gather(parts, v.contiguous(), group=group)
+            return torch.cat(parts)
+
+        return {k: [gather(f) for f in v] if isinstance(v, list)
+                else gather(v) for k, v in out.items()}
 
     @torch.inference_mode()
     def evaluate_tiled(self, vol, stride=(80, 80, 80),
@@ -184,6 +233,11 @@ class Inferencer:
         torch.cuda.current_stream(self.device).synchronize()
         return {k: v.numpy() for k, v in host.items()}
 
+    def _writes(self) -> bool:
+        """Whether this rank writes a served volume: rank 0 of a mesh (its
+        ranks compute the same outputs), or the one process."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
     def _out_dir(self, save_dir, path):
         """Per-input output directory: save_dir/<basename without .nii*>.
         The serial and batched pipelines write one input to one place."""
@@ -229,18 +283,21 @@ class Inferencer:
                 input_paths, save_dir, win_size, exclude_keys, ext,
                 save_input, batch_size, prefetch)
         results = []
+        writes = self._writes()
         if not prefetch or len(input_paths) <= 1:
             for p in input_paths:
                 im, aff, _, _ = self._prepare(p, win_size)
                 out_dir = self._out_dir(save_dir, p)
-                os.makedirs(out_dir, exist_ok=True)
-                if save_input:
+                if writes:
+                    os.makedirs(out_dir, exist_ok=True)
+                if save_input and writes:
                     viewVolume(im.cpu().numpy(), aff, names=["input"],
                                ext=ext, save_dir=out_dir)
                 outs = self.evaluate_image(im, keep_feat=False)
                 host = self.fetch_outputs(outs, exclude_keys)
                 del outs
-                self._write_outputs(host, aff, out_dir, ext)
+                if writes:
+                    self._write_outputs(host, aff, out_dir, ext)
                 results.append(out_dir)
             return results
 
@@ -254,8 +311,9 @@ class Inferencer:
                         load = ex.submit(self._prepare, input_paths[i + 1],
                                          win_size)
                     out_dir = self._out_dir(save_dir, p)
-                    os.makedirs(out_dir, exist_ok=True)
-                    if save_input:
+                    if writes:
+                        os.makedirs(out_dir, exist_ok=True)
+                    if save_input and writes:
                         viewVolume(im.cpu().numpy(), aff, names=["input"],
                                    ext=ext, save_dir=out_dir)
                     outs = self.evaluate_image(im, keep_feat=False)
@@ -263,8 +321,9 @@ class Inferencer:
                     del outs
                     if write is not None:
                         write.result()
-                    write = ex.submit(self._write_outputs, host, aff,
-                                      out_dir, ext)
+                    if writes:
+                        write = ex.submit(self._write_outputs, host, aff,
+                                          out_dir, ext)
                     results.append(out_dir)
             finally:
                 # a pending write's failure surfaces even when a later
@@ -276,32 +335,56 @@ class Inferencer:
     def _evaluate_path_batched(self, input_paths, save_dir, win_size,
                                exclude_keys, ext, save_input, batch_size,
                                prefetch=True):
-        """Group-batched serving (see evaluate_path). A partial bucket runs
-        at its own batch size: with nothing compiled per shape there is no
-        executable to reuse by padding it, as the JAX package does."""
+        """Group-batched serving (see evaluate_path). With a mesh a bucket
+        that is not a multiple of the 'data' axis is padded by repeating
+        its last volume, the extra outputs dropped, and each data rank
+        serves and writes its own volumes (space rank 0 writes); without
+        one a partial bucket runs at its own batch size (nothing is
+        compiled per shape)."""
         groups = [input_paths[i:i + batch_size]
                   for i in range(0, len(input_paths), batch_size)]
+        n_data, r_data = self._data()
+        space_writer = (self.mesh is None
+                        or axis_index(self.mesh, "space") == 0)
 
+        @torch.inference_mode()
         def compute_group(g, loaded):
             buckets: dict = {}
             for pos, (im, _, _, _) in enumerate(loaded):
                 buckets.setdefault(tuple(im.shape), []).append((pos, im))
             out_host = [None] * len(g)
-            for members in buckets.values():
-                x = torch.stack([im for _, im in members])[..., None]
-                host = self.fetch_outputs(self.evaluate_batch(x),
-                                           exclude_keys)
-                for i, (pos, _) in enumerate(members):
-                    out_host[pos] = {k: v[i:i + 1] for k, v in host.items()}
+            for shp, members in buckets.items():
+                n_real = len(members)
+                pad_to = -(-n_real // n_data) * n_data
+                if pad_to > n_real:
+                    print(f"evaluate_path: padding {n_real} volume(s) of "
+                          f"shape {shp} to a batch of {pad_to} "
+                          f"({pad_to - n_real} redundant recompute(s))")
+                vols = [im for _, im in members]
+                vols += [vols[-1]] * (pad_to - n_real)
+                x = torch.stack(vols)[..., None]
+                host = self.fetch_outputs(
+                    self._local_batch(self._as_input(x), True, False),
+                    exclude_keys)
+                m = pad_to // n_data
+                for i in range(m):
+                    j = r_data * m + i
+                    if j < n_real:
+                        out_host[members[j][0]] = {
+                            k: v[i:i + 1] for k, v in host.items()}
             return out_host
 
         def write_group(host_list, g, affs):
             for p, aff, one in zip(g, affs, host_list):
+                if one is None or not space_writer:
+                    continue
                 out_dir = self._out_dir(save_dir, p)
                 os.makedirs(out_dir, exist_ok=True)
                 self._write_outputs(one, aff, out_dir, ext)
 
         def save_inputs(g, loaded):
+            if not self._writes():
+                return
             for p, (im, aff, _, _) in zip(g, loaded):
                 out_dir = self._out_dir(save_dir, p)
                 os.makedirs(out_dir, exist_ok=True)
@@ -359,13 +442,13 @@ class TwoStageInferencer(Inferencer):
     two-stage training (the run's ckp/ root, whose newest step checkpoint
     is read, or one ckpt_* directory; each stage takes its own part), or
     each stage's `.pth` / `.pt` state dict; without one a stage's weights
-    are random, from seed 0."""
+    are random, from seed 0. `mesh`: as Inferencer's."""
 
     def __init__(self, cfg, pathol_ckpt=None, task_ckpt=None,
                  compute_dtype=torch.float32, exact: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         self._ckpts = {"pathol": pathol_ckpt, "task": task_ckpt}
-        super().__init__(cfg, None, compute_dtype, exact, device)
+        super().__init__(cfg, None, compute_dtype, exact, device, mesh)
 
     def _build(self, cfg):
         return build_inpaint_model(cfg, device=self.device)

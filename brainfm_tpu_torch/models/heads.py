@@ -7,6 +7,11 @@ running each conv on its own. A negative width -n is the pooled scalar
 head (age): max-pool 4 -> ConvBlock(16) -> max-pool 4 -> ConvBlock(4) ->
 flatten -> Dense 160 -> ReLU -> Dense 10 -> ReLU -> Dense n, squeezed to
 (N,) when n = 1. `DepHead` concatenates the input image to the feature.
+
+In a space scope (parallel/spatial.py) the 3x3 convs take a halo from
+the neighbouring slabs, the 1x1 convs stay local, a head on a level that
+runs whole runs whole, and the pooled scalar head gathers its feature
+whole (`gather_space`) and runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.spatial import (current_space, gather_space, space_conv,
+                                whole)
 
 
 class ConvBlock(nn.Module):
@@ -27,7 +35,9 @@ class ConvBlock(nn.Module):
         self.main = conv(in_channels, out_channels, 3, padding=1)
 
     def forward(self, x):
-        return F.leaky_relu(self.main(x), 0.2)
+        sc = current_space()
+        y = self.main(x) if sc is None else space_conv(self.main, x, sc)
+        return F.leaky_relu(y, 0.2)
 
 
 def _fused_final_convs(x, convs: Dict[str, nn.Module]):
@@ -51,6 +61,16 @@ def scalar_head_width(size, is_3d=True) -> int:
     for s in tuple(size)[:3 if is_3d else 2]:
         n *= int(s) // 4 // 4
     return n
+
+
+def _level_whole(feats, idx) -> bool:
+    """In a space scope: whether feature level `feats[idx]` ran whole on
+    every rank (feats is [bottleneck, ..., final])."""
+    sc = current_space()
+    if sc is None:
+        return False
+    L = len(feats)
+    return not sc.levels[L - 1 - (idx % L)]
 
 
 class TaskHead(nn.Module):
@@ -89,6 +109,9 @@ class TaskHead(nn.Module):
                 self.scalar_name = name
 
     def forward(self, feats):
+        if _level_whole(feats, self.out_feat_level):
+            with whole():
+                return self._heads(feats[self.out_feat_level])
         return self._heads(feats[self.out_feat_level])
 
     def _heads(self, x):
@@ -98,7 +121,12 @@ class TaskHead(nn.Module):
             x, {n: getattr(self, f"final_conv_{n}") for n in self.final_names})
         name = self.scalar_name
         if name is not None:
-            y = self.pool_layers(x)
+            if current_space() is not None:
+                xw = gather_space(x)
+                with whole():
+                    y = self.pool_layers(xw)
+            else:
+                y = self.pool_layers(x)
             # flattened channels-last, as the JAX package flattens (D,H,W,C)
             y = y.movedim(1, -1).reshape(y.shape[0], -1)
             y = F.relu(getattr(self, f"final_linear1_{name}")(y))
@@ -121,5 +149,10 @@ class DepHead(TaskHead):
                          out_feat_level=out_feat_level, is_3d=is_3d)
 
     def forward(self, feats, image):
+        if _level_whole(feats, self.out_feat_level):
+            image = gather_space(image)
+            with whole():
+                return self._heads(torch.cat(
+                    [feats[self.out_feat_level], image], dim=1))
         return self._heads(torch.cat([feats[self.out_feat_level], image],
                                      dim=1))

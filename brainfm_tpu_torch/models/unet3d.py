@@ -11,9 +11,19 @@ reference's, so a state dict loads by name (models/params_io.py).
 The JAX package's TPU workarounds are not ported; their plain forms are,
 which tests/test_phase_upconv.py proves equal: `_phase_upconv` /
 `_phase_pair_conv` and `_pair_groupnorm` / `_fused_groupnorm` are plain
-upsample + concat + Conv3d and nn.GroupNorm; `_replicate_if_degenerate`
-has no counterpart. `_remat_block` is each DoubleConv's `remat` mode
-(`remat_mode`), honoured when gradients are recorded.
+upsample + concat + Conv3d and nn.GroupNorm. `_remat_block` is each
+DoubleConv's `remat` mode (`remat_mode`), honoured when gradients are
+recorded.
+
+Inside `parallel.spatial.space_scope` (the port's counterpart of the JAX
+package's GSPMD spatial sharding) the 3-D network runs on D slabs: each
+conv takes a halo from its neighbours (`space_conv`), GroupNorm reduces
+its statistics over the slabs (`space_group_norm`), max-pool and the
+nearest upsample stay local while the slabs are aligned, and the deep
+levels that do not split evenly (`level_layout`, the rule of the JAX
+package's `_replicate_if_degenerate`) run whole on every rank: their
+input is gathered (`gather_space`) and their output sliced back where a
+sharded level reads it (`slice_space`). Outside a scope nothing changes.
 """
 
 from __future__ import annotations
@@ -23,6 +33,10 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.spatial import (current_space, gather_space, level_layout,
+                                slice_space, space_conv, space_group_norm,
+                                use_scope, whole)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -63,11 +77,14 @@ class SingleConv(nn.Module):
                 raise ValueError(f"unsupported layer type {c!r}")
 
     def forward(self, x):
+        sc = current_space()
         for c in self.order:
             if c == "g":
-                x = self.groupnorm(x)
+                x = (self.groupnorm(x) if sc is None
+                     else space_group_norm(x, self.groupnorm, sc))
             elif c == "c":
-                x = self.conv(x)
+                x = self.conv(x) if sc is None else space_conv(self.conv, x,
+                                                               sc)
             elif c == "l":
                 x = F.leaky_relu(x, 0.01)
             elif c == "r":
@@ -123,7 +140,13 @@ class DoubleConv(nn.Module):
 
     def forward(self, x):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self._block, x, use_reentrant=False,
+            sc = current_space()
+
+            def block(x):   # the recomputation runs in the forward's scope
+                with use_scope(sc):
+                    return self._block(x)
+
+            return checkpoint(block, x, use_reentrant=False,
                               preserve_rng_state=False,
                               **_REMAT_KW[self.remat])
         return self._block(x)
@@ -177,11 +200,25 @@ def _decoders(fm, order, num_groups, remat, is_3d):
 def _decode(decoders, enc_feats, is_unit_vector):
     """[bottleneck, decoder level 1, ..., final] from the encoder features
     (deepest first); the final level unit-normalized over channels when
-    `is_unit_vector`."""
+    `is_unit_vector`. In a space scope a level that runs whole feeds a
+    sharded one through its upsample, then `slice_space`."""
+    sc = current_space()
     x = enc_feats[0]
     feats = [x]
-    for dec, skip in zip(decoders, enc_feats[1:]):
-        x = dec(skip, x)
+    n = len(enc_feats)
+    for i, (dec, skip) in enumerate(zip(decoders, enc_feats[1:])):
+        if sc is None:
+            x = dec(skip, x)
+        elif not sc.levels[n - 2 - i]:
+            with whole():
+                x = dec(skip, x)
+        else:
+            if not sc.levels[n - 1 - i]:
+                # the level below ran whole: upsample it to this level's
+                # whole extent and keep this rank's slab
+                x = slice_space(_nearest_upsample_to(
+                    x, (skip.shape[2] * sc.n,) + tuple(skip.shape[3:])))
+            x = dec(skip, x)
         feats.append(x)
     if is_unit_vector:
         norm = torch.linalg.vector_norm(feats[-1], dim=1, keepdim=True)
@@ -196,10 +233,23 @@ def _encoders(in_channels, fm, order, num_groups, remat, is_3d):
 
 
 def _encode(encoders, x):
-    """Every encoder level's output, deepest first."""
+    """Every encoder level's output, deepest first. In a space scope x is
+    this rank's D slab; the scope's `levels` is set here."""
+    sc = current_space()
+    if sc is not None:
+        if x.dim() != 5:
+            raise ValueError("space sharding splits the D axis of a 3-D "
+                             "network's (N, C, D, H, W) input")
+        sc.levels = level_layout(x.shape[2] * sc.n, sc.n, len(encoders))
     enc_feats = []
-    for enc in encoders:
-        x = enc(x)
+    for k, enc in enumerate(encoders):
+        if sc is None or sc.levels[k]:
+            x = enc(x)
+        else:
+            if k == 0 or sc.levels[k - 1]:
+                x = gather_space(x, scope=sc)
+            with whole():
+                x = enc(x)
         enc_feats.insert(0, x)
     return enc_feats
 

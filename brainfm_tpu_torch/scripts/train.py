@@ -6,7 +6,7 @@ JAX package's):
         [--itr_per_epoch N] [--resume CKPT_DIR] [--debug]
         [--remat off|full|save_convs] [--no_amp] [--grad_accum K]
         [--staging cache|host] [--batch_items B] [--device cpu]
-        [--eval_only --resume CKPT_DIR]
+        [--eval_only --resume CKPT_DIR] [--mesh DATA[xSPACE] [--fsdp]]
 
 Cascading config load, model and criterion build, then the datasets of
 synth/datasets.py::build_datasets (every dataset named by the generator
@@ -22,8 +22,20 @@ training (with the frozen critic when losses.implicit_pathol is on). An
 'a+b' backbone (twostage.yaml) trains the two-stage pair of
 models/build.py::build_inpaint_model; --eval_only refuses it, as the JAX
 script does (infer/api.py::TwoStageInferencer serves it). Runs on CUDA
-unless --device says otherwise. --mesh and --fsdp (the multi-GPU slice,
-ROADMAP Queue 1 item 5) raise NotImplementedError.
+unless --device says otherwise.
+
+Multi-GPU: --mesh DATA or DATAxSPACE trains data-parallel over DATA
+ranks (each synthesizes its own items), the volume's D axis split over
+SPACE ranks; --fsdp also shards the parameters and the optimizer state
+over the data ranks. The script is launched as torchrun launches it, one
+process per rank with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+MASTER_PORT set, e.g. on a host of 8 GPUs:
+
+    torchrun --standalone --nproc_per_node 8 \
+        -m brainfm_tpu_torch.scripts.train --mesh 4x2 --fsdp ...
+
+DATA x SPACE must equal the world size. The ranks join over NCCL (gloo
+with --device cpu) before anything touches a device.
 """
 
 from __future__ import annotations
@@ -36,11 +48,12 @@ import time
 
 import torch
 
-from ..config import load_config, merge_missing
+from ..config import load_config, merge_missing, update_out_dir
 from ..infer.api import Inferencer
 from ..models.build import (build_critic_from_cfg, build_inpaint_model,
                             build_model)
 from ..models.criterion import make_criterion
+from ..parallel import init_distributed, init_sharded, make_mesh
 from ..synth.datasets import build_datasets
 from ..synth.engine import SubjectBank
 from ..train.loop import make_eval_step, make_val_set_stream, train
@@ -123,8 +136,13 @@ def main(argv=None):
     ap.add_argument("--eval_only", action="store_true",
                     help="score the stream's validation set with the "
                          "--resume checkpoint's weights; no training")
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="multi-GPU mesh 'DATA' or 'DATAxSPACE', e.g. 8 or "
+                         "4x2 (batch over data, volume D over space); one "
+                         "process per rank, as torchrun launches")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --mesh: shard parameters and optimizer state "
+                         "over the data axis instead of replicating them")
     ap.add_argument("--batch_items", type=int, default=0,
                     help="items per step (0 = cfg.batch_size)")
     ap.add_argument("--remat", default=None,
@@ -143,11 +161,21 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    for flag, what in ((args.mesh, "--mesh"), (args.fsdp, "--fsdp")):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet (the multi-GPU slice, ROADMAP "
-                "Queue 1 item 5)")
+    if args.fsdp and not args.mesh:
+        ap.error("--fsdp requires --mesh (state shards over the mesh "
+                 "'data' axis; without a mesh it would silently stay "
+                 "replicated)")
+    if args.fsdp and (args.eval_only):
+        ap.error("--eval_only does not implement FSDP state sharding; "
+                 "evaluate with the replicated params or resume training "
+                 "with --fsdp and read the val lines")
+    mesh = None
+    if args.mesh:
+        # before anything touches a device
+        init_distributed(backend="gloo" if args.device == "cpu" else None)
+        parts = [int(v) for v in args.mesh.lower().split("x")]
+        mesh = make_mesh(data=parts[0],
+                         space=parts[1] if len(parts) > 1 else 1)
 
     train_cfg = train_config(args.gen_cfg, args.train_cfg)
     if args.remat is not None:
@@ -168,15 +196,16 @@ def main(argv=None):
     # an 'a+b' backbone (twostage.yaml) trains two-stage: the stage-0
     # pathology predictor, then the masked, mask-conditioned task model
     twostage = "+" in str(train_cfg.get("backbone") or "")
-    if twostage:
-        cfg, model = build_inpaint_model(train_cfg, device=args.device)
+    build = build_inpaint_model if twostage else build_model
+    if args.fsdp and not args.resume:
+        # a fresh FSDP start: only this rank's shards are materialised
+        cfg = build(train_cfg, device="meta")[0]
+        model = init_sharded(lambda: build(cfg, device="meta")[1], mesh)
     else:
-        cfg, model = build_model(train_cfg, device=args.device)
+        cfg, model = build(train_cfg, device=args.device)
     _, weight_dict, loss_fn = make_criterion(cfg)
-    # a timestamped run directory under outs/, as the JAX script's
-    out_dir = args.out_dir or os.path.join(
-        "outs", f"{cfg.job_name or 'job'}-{cfg.exp_name or 'exp'}-"
-        f"{time.strftime('%Y%m%d-%H%M%S')}")
+    # a timestamped run directory under outs/, rank 0's time on every rank
+    out_dir = args.out_dir or update_out_dir(cfg).out_dir
     dev = next(model.parameters()).device
     t0 = time.perf_counter()
     datasets = build_datasets(cfg, cfg.tasks, device=dev)
@@ -199,11 +228,11 @@ def main(argv=None):
         vb, vnames = make_val_set_stream(stream, seed=0, n_items=2,
                                          batch_items=batch_items)
         print("val set spans datasets:", sorted(set(vnames)))
-        inf = Inferencer(cfg, ckpt_path=args.resume, device=dev)
+        inf = Inferencer(cfg, ckpt_path=args.resume, device=dev, mesh=mesh)
         # train()'s critic, so the scores compare with best_val_stats
         critic, ckey = build_critic_from_cfg(cfg, device=dev)
         ev = make_eval_step(inf.model, cfg, weight_dict, loss_fn,
-                            critic=critic, critic_image_key=ckey)
+                            critic=critic, critic_image_key=ckey, mesh=mesh)
         for i, b in enumerate(vb):
             losses = ev(inf.model, b)
             print(f"val[{i}]:",
@@ -211,7 +240,7 @@ def main(argv=None):
         return 0
     state = train(cfg, model, weight_dict, loss_fn, None, out_dir,
                   itr_per_epoch=itr, resume=args.resume, stream=stream,
-                  batch_items=batch_items,
+                  batch_items=batch_items, mesh=mesh, fsdp=args.fsdp,
                   twostage_models=model if twostage else None)
     print("training done; final step", state.step)
     if dev.type == "cuda":

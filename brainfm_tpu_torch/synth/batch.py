@@ -1,6 +1,6 @@
 """Train batches from synthesized items (port of `stack_items`,
 brainfm_tpu/synth/sharded.py). The per-rank sharded synthesis of that file
-comes with the multi-GPU slice of the port."""
+is synth/sharded.py, which re-exports this."""
 
 from __future__ import annotations
 

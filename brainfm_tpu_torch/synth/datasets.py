@@ -25,6 +25,7 @@ import torch
 
 from ..config import AttrDict
 from ..device import resolve_device
+from ..parallel.mesh import process_index
 from .engine import SubjectBank, knobs_from_cfg, synth_item
 from .params import SynthStatic
 from .sampler import WeightedSubjectSampler, choose_modality
@@ -129,14 +130,6 @@ def _read_ages(split_root: str):
                 if len(parts) == 2:
                     ages[parts[0]] = float(parts[1])
     return ages
-
-
-def process_index() -> int:
-    """This process's rank in the torch.distributed group, 0 without one."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
 
 
 def item_generator(seed: int, epoch: int, item: int, device):
@@ -250,17 +243,28 @@ class SynthDataset:
         self._rng = np.random.default_rng(
             (zlib.crc32(self.name.encode()), seed))
 
-    def _prep_subject(self, subject, mode):
+    def _draw_lesion(self, keys):
+        """The roulette's draw of a lesion from the pool for a subject with
+        `keys`, or None (no pool, or the subject has its own)."""
+        if self._lesion_paths and "pathol_prob" not in keys:
+            return int(self._rng.integers(len(self._lesion_paths)))
+        return None
+
+    def _with_lesion(self, subject, mode, lesion):
         """Alias the drawn real modality into 'image' and give the subject
-        a lesion map from the dataset's pool: one roulette draw."""
+        lesion map `lesion` of the pool (None: none)."""
         subject = dict(subject)
         if mode != "synth":
             subject["image"] = subject[mode]
-        if self._lesion_paths and "pathol_prob" not in subject:
-            i = int(self._rng.integers(len(self._lesion_paths)))
+        if lesion is not None:
             subject["pathol_prob"] = torch.from_numpy(
-                self._lesion(i)).to(self.device)
+                self._lesion(lesion)).to(self.device)
         return subject
+
+    def _prep_subject(self, subject, mode):
+        """Alias the drawn real modality into 'image' and give the subject
+        a lesion map from the dataset's pool: one roulette draw."""
+        return self._with_lesion(subject, mode, self._draw_lesion(subject))
 
     def _lesion(self, i: int) -> np.ndarray:
         """Decoded lesion volume i, LRU-cached up to `lesion_resident`
@@ -299,15 +303,59 @@ class SynthDataset:
                           self._knobs_for(mode), draws=draws, record=record,
                           stats=stats)
 
-    def get_group(self, idxs):
-        raise NotImplementedError(
-            "SynthDataset.get_group (grouped per-rank synthesis) belongs to "
-            "the multi-GPU slice, ROADMAP Queue 1 item 5")
+    def get_group(self, idxs, load=None):
+        """The subjects and modality of a grouped batch, as the JAX
+        package's get_group draws them: each item's modality against its
+        own subject's volumes, all the modalities first. When every draw
+        lands on one mode the subjects are cut to the keys they share,
+        then each takes its lesion draw in item order, and (subjects,
+        mode) is returned; otherwise (None, modes), and the caller draws
+        per item (get_batch_sharded). `load`: the item positions whose
+        subjects are put on the device (default all; the other entries
+        are None, their roulette draws still taken)."""
+        modes = [choose_modality(self._rng, self.input_prob,
+                                 set(self.bank.subjects[i])) for i in idxs]
+        if len(set(modes)) > 1:
+            return None, modes
+        mode = modes[0]
+        common = set(self.bank.subjects[idxs[0]])
+        for i in idxs[1:]:
+            common &= set(self.bank.subjects[i])
+        load = range(len(idxs)) if load is None else set(load)
+        out = []
+        for pos, i in enumerate(idxs):
+            lesion = self._draw_lesion(common)
+            if pos in load:
+                s = self.bank.to_device(i, self.device)
+                out.append(self._with_lesion({k: s[k] for k in common},
+                                             mode, lesion))
+            else:
+                out.append(None)
+        return out, mode
 
-    def get_batch_sharded(self, mesh, idxs, keys, axes=("data",)):
-        raise NotImplementedError(
-            "SynthDataset.get_batch_sharded belongs to the multi-GPU slice, "
-            "ROADMAP Queue 1 item 5")
+    def get_batch_sharded(self, mesh, idxs, generators, axes=("data",)):
+        """This rank's rows of one train batch over the mesh: item i of
+        `idxs` drawn from `generators[i]` on its own data rank
+        (synth/sharded.py). Every rank takes every roulette draw, so the
+        ranks agree on the batch. A batch whose modality draws disagree
+        is made per item, each item's lesion drawn in turn, as the JAX
+        package's fallback."""
+        from .sharded import local_items, sharded_synth_batch
+
+        mine = local_items(mesh, len(idxs), axes)
+        subjects, mode = self.get_group(idxs, load=mine)
+        if subjects is None:
+            subjects = []
+            for pos, (i, m) in enumerate(zip(idxs, mode)):
+                lesion = self._draw_lesion(self.bank.subjects[i])
+                subjects.append(self._with_lesion(
+                    self.bank.to_device(i, self.device), m, lesion)
+                    if pos in mine else None)
+        knobs = ([self._knobs_for(m) for m in mode] if isinstance(mode, list)
+                 else self._knobs_for(mode))
+        return sharded_synth_batch(mesh, generators, subjects, self.static,
+                                   self.tasks, mode, knobs, axes=axes,
+                                   per_item_subject=True)
 
 
 class ConcatStream:

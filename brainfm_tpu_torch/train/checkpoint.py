@@ -12,6 +12,12 @@ its `_bk` rename, numeric sorting of step directories. Files are read with
 `weights_only=True` (tensors and plain containers, no pickled code). The
 JAX package's orbax directories are not read here; its weights reach the
 port through models/params_io.from_jax_params (and from_jax_opt_state).
+
+Under torch.distributed only rank 0 writes, and the best checkpoint's
+rename is fenced by a barrier. A model sharded with FSDP
+(parallel/fsdp.py) is gathered to whole tensors first (every rank takes
+part), so its checkpoint is the same format and loads into a
+single-device run; loading into a sharded model keeps each rank's shards.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import shutil
 import threading
 
 import torch
+
+from ..parallel.mesh import process_count, process_index
 
 MODEL_FILE = "model.pt"
 TRAIN_FILE = "train.pt"
@@ -42,9 +50,12 @@ _PENDING = _Pending()
 
 
 def _to_cpu(obj):
-    """A copy of a (nested) state dict with every tensor on the CPU."""
+    """A copy of a (nested) state dict with every tensor on the CPU (a
+    DTensor gathered whole: a collective)."""
     if torch.is_tensor(obj):
-        return obj.detach().to("cpu", copy=True)
+        from ..parallel.fsdp import full_tensor
+
+        return full_tensor(obj.detach()).to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -53,6 +64,12 @@ def _to_cpu(obj):
 
 
 def _snapshot(state):
+    """(model, train) state dicts on the host. On a rank other than 0 of a
+    model that is not sharded nothing is copied: (None, None)."""
+    from ..parallel.fsdp import is_sharded
+
+    if process_index() != 0 and not is_sharded(state.model):
+        return None, None
     return (_to_cpu(state.model.state_dict()),
             {"optimizer": _to_cpu(state.optimizer.state_dict()),
              "step": int(state.step)})
@@ -115,9 +132,11 @@ def save_checkpoint(ckpt_dir: str, step: int, state, extra: dict | None = None,
     them."""
     finalize_pending()
     ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{step:06d}")
     model_sd, train_sd = _snapshot(state)
+    if process_index() != 0:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     if extra:
         with open(path + ".extra.json", "w") as f:
             json.dump(extra, f)
@@ -146,16 +165,20 @@ def save_best_checkpoint(ckpt_dir: str, step: int, state,
     del step
     finalize_pending()
     ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
     best = os.path.join(ckpt_dir, "ckpt_best")
     bk = os.path.join(ckpt_dir, "ckpt_best_bk")
-    if os.path.isdir(best):
-        shutil.rmtree(bk, ignore_errors=True)
-        os.rename(best, bk)
-    _write(best, *_snapshot(state))
-    if extra:
-        with open(os.path.join(best, "extra.json"), "w") as f:
-            json.dump(extra, f)
+    snap = _snapshot(state)
+    if process_index() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.isdir(best):
+            shutil.rmtree(bk, ignore_errors=True)
+            os.rename(best, bk)
+        _write(best, *snap)
+        if extra:
+            with open(os.path.join(best, "extra.json"), "w") as f:
+                json.dump(extra, f)
+    if process_count() > 1:
+        torch.distributed.barrier()
     return best
 
 
@@ -186,16 +209,27 @@ def load_checkpoint(path: str, state):
     beside their parameters, step counts on the CPU)."""
     from .step import TrainState
 
+    from ..parallel.fsdp import is_sharded, shard_optimizer_state
+
     load_model_weights(path, state.model)
     train_sd = torch.load(os.path.join(path, TRAIN_FILE), map_location="cpu",
                           weights_only=True)
-    state.optimizer.load_state_dict(train_sd["optimizer"])
+    opt_sd = train_sd["optimizer"]
+    if is_sharded(state.model):
+        opt_sd = shard_optimizer_state(opt_sd, state.optimizer)
+    state.optimizer.load_state_dict(opt_sd)
     return TrainState(state.model, state.optimizer, int(train_sd["step"]))
 
 
 def load_model_weights(path: str, model):
     """Load only the model weights of a checkpoint directory into `model`
-    (strict). Returns the model."""
+    (strict; a sharded model keeps its shards). Returns the model."""
+    from ..parallel.fsdp import is_sharded, load_full_state
+
+    if is_sharded(model):
+        return load_full_state(model, torch.load(
+            os.path.join(path, MODEL_FILE), map_location="cpu",
+            weights_only=True))
     dev = next(model.parameters()).device
     model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE),
                                      map_location=dev, weights_only=True),

@@ -6,17 +6,22 @@ checkpoint and the loss curve. Every item is synthesized on the model's
 device by `synth_item`, so K1 (ops/warp.py) and K2 (ops/lut.py) run in
 every iteration. Items come from a subject bank or from the
 multi-dataset stream (synth/datasets.py::ConcatStream). Randomness is
-drawn per epoch from (seed, epoch): a torch generator for the bank's items
-(the stream's: one per item, from (seed, epoch, item)) and numpy generators
-for the host draws, all made anew each epoch, so a run resumed at an epoch
-boundary draws what an uninterrupted one draws. With
+drawn per epoch from (seed, epoch): one torch generator per item, from
+(seed, epoch, item), and numpy generators for the host draws, all made
+anew each epoch, so a run resumed at an epoch boundary draws what an
+uninterrupted one draws, and a data rank of a mesh makes exactly the
+items a single process makes in its rows of the batch. With
 `losses.implicit_pathol` the frozen critic scores every step and
 validation batch; `twostage_models` trains the two-stage pair. Every
 `vis_itr` steps the visualizer writes PNG montages, feature strips and
 NIfTI dumps of a forward on the step's batch.
 
-Not ported here: the multi-GPU mesh and FSDP (ROADMAP Queue 1 item 5);
-they raise NotImplementedError.
+`mesh=` (parallel/mesh.py) trains data-parallel, one process per rank:
+each data rank synthesizes only its own items (synth/sharded.py), the
+volume's D axis may be split over 'space', and `fsdp=True` shards the
+parameters and the optimizer state over 'data' (parallel/fsdp.py). Logs,
+the loss curve and checkpoints are written by rank 0; every rank scores
+the same validation set.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ import torch
 from ..device import resolve_device
 from ..models.build import build_critic_from_cfg, process_outputs
 from ..models.criterion import weighted_total
+from ..parallel.mesh import axis_size, process_index
 from ..synth import SynthStatic, knobs_from_cfg, synth_item
 from ..synth.batch import stack_items
 from ..synth.datasets import item_generator
+from ..synth.sharded import sharded_synth_batch
 from ..synth.sampler import WeightedSubjectSampler, choose_modality
 from ..utils.logging import plot_loss, setup_logging, write_log_line
 from ..utils.nifti import viewVolume
@@ -83,7 +90,7 @@ def apply_condition(batch, condition: str | None):
 
 def make_eval_step(model, cfg, weight_dict, loss_fn, sample_accum: int = 1,
                    amp: bool | None = None, critic=None,
-                   critic_image_key: str = "T1"):
+                   critic_image_key: str = "T1", mesh=None):
     """Validation step `step(model, batch) -> losses` (with 'loss_total'):
     forward + criterion under torch.no_grad, with the train step's frozen
     critic when one is given, so validation scores what training does.
@@ -96,7 +103,7 @@ def make_eval_step(model, cfg, weight_dict, loss_fn, sample_accum: int = 1,
 
     def losses_of(model, batch):
         return batch_losses(model, cfg, loss_fn, batch, amp, critic,
-                            critic_image_key)
+                            critic_image_key, mesh=mesh)
 
     @torch.no_grad()
     def step(model, batch):
@@ -116,11 +123,12 @@ def make_eval_step(model, cfg, weight_dict, loss_fn, sample_accum: int = 1,
 
 
 def make_twostage_eval_step(model, cfg, weight_dict, loss_fn,
-                            amp: bool | None = None):
+                            amp: bool | None = None, mesh=None):
     """Validation twin of make_twostage_train_step over a TwoStage
     `model`: the chained forward, stage 0's sigmoid kept, the criterion,
     no gradients; `step(model, batch) -> losses`."""
-    return make_eval_step(model, cfg, weight_dict, loss_fn, amp=amp)
+    return make_eval_step(model, cfg, weight_dict, loss_fn, amp=amp,
+                          mesh=mesh)
 
 
 def _to(batch, dev):
@@ -183,17 +191,12 @@ def make_val_set_stream(stream, seed: int, n_items: int = 2,
     return batches, [stream.names[d] for d, _ in plan]
 
 
-def epoch_generator(dev, seed: int, epoch: int) -> torch.Generator:
-    """The item generator of one epoch, seeded from (seed, epoch) only."""
-    s = np.random.SeedSequence((seed + 1, epoch)).generate_state(1, np.uint64)
-    return torch.Generator(dev).manual_seed(int(s[0] >> np.uint64(1)))
-
-
 def _bank_batch(bank, idx, dev, stage_host, input_prob, rng_host,
-                input_modes, knobs, cfg, scfg, tasks, gen, batch_items):
+                input_modes, knobs, cfg, scfg, tasks, generators, mesh=None):
     """One train batch from bank subject `idx`: its modality drawn from
-    `input_prob` (or `input_modes`), then `batch_items` items. A staged
-    subject is freed before the caller's step."""
+    `input_prob` (or `input_modes`), then one item per generator (with a
+    mesh: this data rank's items only). A staged subject is freed before
+    the caller's step."""
     subj = bank.stage(idx, dev) if stage_host else bank.to_device(idx, dev)
     if input_prob:
         avail = set(bank.subjects[idx].keys())
@@ -205,12 +208,15 @@ def _bank_batch(bank, idx, dev, stage_host, input_prob, rng_host,
             knobs[mode] = knobs_from_cfg(cfg, scfg, mode)
     else:
         mode = input_modes[rng_host.integers(len(input_modes))]
-    return make_batch([gen] * batch_items, subj, scfg, tasks, mode,
-                      knobs[mode])
+    if mesh is not None:
+        return sharded_synth_batch(mesh, generators, subj, scfg, tasks, mode,
+                                   knobs[mode])
+    return make_batch(generators, subj, scfg, tasks, mode, knobs[mode])
 
 
 @torch.no_grad()
-def visualize_step(cfg, model, batch, gstep: int, out_dir: str):
+def visualize_step(cfg, model, batch, gstep: int, out_dir: str,
+                   write: bool = True):
     """The periodic visualization (parity: loop.py:547-600): a forward of
     the batch's first item (its S samples) under the step's autocast,
     the output processors (a two-stage model's 'feat_task' is its 'feat'
@@ -218,7 +224,8 @@ def visualize_step(cfg, model, batch, gstep: int, out_dir: str):
     the last decoder level (`visualizer.feat_vis`) under vis_feat/, the
     NIfTI dumps (`visualizer.make_results`) under vis/results_<step>/ and
     the montage under vis/. No parameter, gradient or random state is
-    touched."""
+    touched. `write=False` runs the forward only (a rank of a sharded
+    model that writes nothing)."""
     vcfg = cfg.get("visualizer")
     x = batch["samples"]["input"][0]
     c = batch.get("cond")
@@ -228,6 +235,8 @@ def visualize_step(cfg, model, batch, gstep: int, out_dir: str):
     outs = {("feat" if k == "feat_task" else k): _each(v, lambda t: t.float())
             for k, v in outs.items() if k != "feat_pathol"}
     outs = process_outputs(model, outs, cfg)
+    if not write:
+        return
     if vcfg is not None and vcfg.get("feat_vis") and "feat" in outs:
         FeatVisualizer(os.path.join(out_dir, "vis_feat"),
                        n_channels=int(vcfg.get("feat_vis_num") or 10)
@@ -251,10 +260,24 @@ def visualize_step(cfg, model, batch, gstep: int, out_dir: str):
         {k: v for k, v in outs.items() if k != "feat"})
 
 
-def _refuse(what, why):
-    raise NotImplementedError(
-        f"{what} is not ported yet ({why}); the port trains on one device "
-        "from a subject bank")
+def _check_mesh(mesh, fsdp: bool, batch_items: int):
+    """The JAX loop's checks of mesh= and fsdp=."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True requires a mesh with a 'data' axis — "
+                         "without one the state would silently stay "
+                         "single-device fully replicated")
+    if mesh is None:
+        return
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), "
+                        f"not {type(mesh).__name__}")
+    if "data" not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names} have no 'data'")
+    if batch_items % axis_size(mesh, "data"):
+        raise ValueError(f"batch_items {batch_items} is not a multiple of "
+                         f"the mesh 'data' axis {axis_size(mesh, 'data')}")
 
 
 def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
@@ -286,10 +309,21 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     ckpt_best_bk). `keep_ckpt` bounds the rolling epoch checkpoints
     (ckp/ckpt_{step}), saved on a background thread. Writes log.txt (one
     JSON line per epoch), train.log and the loss curve. Returns the
-    TrainState."""
-    if mesh is not None or fsdp:
-        _refuse("mesh= / fsdp=True",
-                "the multi-GPU slice, ROADMAP Queue 1 item 5")
+    TrainState.
+
+    `mesh`: a DeviceMesh of parallel.make_mesh, one process per rank (the
+    multi-GPU path of the JAX loop): batch_items must be a multiple of
+    its 'data' axis; data rank r synthesizes items r*B/n ... of every
+    batch (the stream path plans a whole batch from one dataset,
+    ConcatStream.epoch_grouped, the same plan on every rank), a 'space'
+    axis splits the forward's D axis, and the gradients are summed over
+    the world (train/step.py). `fsdp`: with a mesh (required; raises
+    without one) the parameters and the optimizer state are sharded over
+    'data' (parallel/fsdp.py); a model that is not sharded yet (a resume
+    builds it replicated) is sharded here, and the checkpoint loads into
+    the shards."""
+    _check_mesh(mesh, fsdp, batch_items)
+    rank0 = process_index() == 0
     losses_cfg = cfg.losses if getattr(cfg, "losses", None) else {}
     if twostage_models is not None:
         if losses_cfg.get("implicit_pathol"):
@@ -304,6 +338,10 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
 
     os.makedirs(out_dir, exist_ok=True)
     logger = setup_logging(os.path.join(out_dir, "train.log"))
+    if fsdp:
+        from ..parallel.fsdp import shard_state
+
+        shard_state(model, mesh)
     dev = next(model.parameters()).device
     critic, critic_key = build_critic_from_cfg(cfg, device=dev)
     if critic is not None:
@@ -339,15 +377,18 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
         step_fn = make_twostage_train_step(
             model, cfg, weight_dict, loss_fn, optimizer,
             train_stage0=bool(cfg.get("train_stage0", True)),
-            sample_accum=sample_accum)
+            sample_accum=sample_accum, mesh=mesh)
     else:
         step_fn = make_train_step(model, cfg, weight_dict, loss_fn,
                                   optimizer, sample_accum=sample_accum,
                                   critic=critic,
-                                  critic_image_key=critic_key)
+                                  critic_image_key=critic_key, mesh=mesh)
     knobs = {m: knobs_from_cfg(cfg, scfg, m) for m in set(input_modes)}
     sampler = (WeightedSubjectSampler([len(bank)], seed=seed)
                if stream is None else None)
+    if mesh is not None and stream is not None:
+        # one batch plan for every rank: the data split is by item
+        stream.sampler.process_index = 0
     input_prob = dict(cfg.get("input_prob") or {})
     if stream is None and not input_prob \
             and tuple(input_modes) == ("synth",):
@@ -359,11 +400,13 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
     val_batches = None  # built at the first validation epoch
     eval_step = None
     for epoch in range(start_epoch, n_epochs):
-        gen = epoch_generator(dev, seed, epoch)
         rng_host = np.random.default_rng((seed, epoch))
         metric_hist: list = []
         t_ep = time.time()
-        if stream is not None:
+        if stream is not None and mesh is not None:
+            group_plan = list(stream.epoch_grouped(epoch, itr_per_epoch,
+                                                   batch_items))
+        elif stream is not None:
             item_iter = stream.epoch(epoch, itr_per_epoch * batch_items,
                                      seed)
         else:
@@ -371,7 +414,13 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
             subj_plan = sampler.sample(itr_per_epoch)
         for it in range(itr_per_epoch):
             gstep = epoch * itr_per_epoch + it
-            if stream is not None:
+            gens = [item_generator(seed, epoch, it * batch_items + i, dev)
+                    for i in range(batch_items)]
+            if stream is not None and mesh is not None:
+                name, idxs = group_plan[it]
+                batch = stream.datasets[name].get_batch_sharded(mesh, idxs,
+                                                                gens)
+            elif stream is not None:
                 items = [next(item_iter) for _ in range(batch_items)]
                 batch = _to(stack_items([t for _, t, _ in items],
                                         [s for _, _, s in items]), dev)
@@ -379,13 +428,15 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
             else:
                 batch = _bank_batch(bank, subj_plan[it][1], dev, stage_host,
                                     input_prob, rng_host, input_modes, knobs,
-                                    cfg, scfg, tasks, gen, batch_items)
+                                    cfg, scfg, tasks, gens, mesh)
             batch = apply_condition(batch, cfg.get("condition"))
             lr = float(lr_sched[min(gstep, len(lr_sched) - 1)])
             wd = float(wd_sched[min(gstep, len(wd_sched) - 1)])
             state, metrics = step_fn(state, batch, lr, wd)
-            if vis_itr and gstep % vis_itr == 0:
-                visualize_step(cfg, state.model, batch, gstep, out_dir)
+            if vis_itr and gstep % vis_itr == 0 and (rank0 or fsdp):
+                # a sharded model's forward needs every rank
+                visualize_step(cfg, state.model, batch, gstep, out_dir,
+                               write=rank0)
             del batch
             metric_hist.append(metrics)
             if it % log_itr == 0:
@@ -394,9 +445,12 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
                             f"loss {float(metrics['loss_total']):.6g} "
                             f"skipped {int(metrics['skipped'])}")
         # nanmean: skipped steps report NaN losses and must not poison the
-        # epoch averages; 'skipped' is 0/1, so its mean is the skip share
+        # epoch averages; 'skipped' is 0/1, so its mean is the skip share.
+        # A loss whose target some datasets lack is averaged over the
+        # steps that have it
+        keys = dict.fromkeys(k for m in metric_hist for k in m)
         stats = {f"train_{k}": float(torch.nanmean(torch.stack(
-            [m[k].float() for m in metric_hist]))) for k in metric_hist[0]}
+            [m[k].float() for m in metric_hist if k in m]))) for k in keys}
         stats.update({"epoch": epoch, "epoch_time": time.time() - t_ep})
 
         if val_itr and (epoch + 1) % val_itr == 0:
@@ -415,11 +469,12 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
                 val_batches = [apply_condition(b, cfg.get("condition"))
                                for b in val_batches]
                 eval_step = (
-                    make_twostage_eval_step(model, cfg, weight_dict, loss_fn)
+                    make_twostage_eval_step(model, cfg, weight_dict, loss_fn,
+                                            mesh=mesh)
                     if twostage_models is not None else
                     make_eval_step(model, cfg, weight_dict, loss_fn,
                                    sample_accum=sample_accum, critic=critic,
-                                   critic_image_key=critic_key))
+                                   critic_image_key=critic_key, mesh=mesh))
             acc: dict = {}
             for vb in val_batches:
                 vl = eval_step(state.model, _to(vb, dev))
@@ -437,14 +492,15 @@ def train(cfg, model, weight_dict, loss_fn, bank, out_dir: str,
                 logger.info(f"epoch {epoch} new best "
                             f"({acc['loss_total']:.4f}) -> ckp/ckpt_best")
 
-        write_log_line(os.path.join(out_dir, "log.txt"), stats)
+        if rank0:
+            write_log_line(os.path.join(out_dir, "log.txt"), stats)
         save_checkpoint(os.path.join(out_dir, "ckp"),
                         (epoch + 1) * itr_per_epoch, state,
                         extra={"epoch": epoch,
                                "best_val_stats": best_val_stats},
                         keep=keep_ckpt, block=False)
     finalize_pending()
-    if stats:
+    if stats and rank0:
         plot_loss(os.path.join(out_dir, "log.txt"),
                   keys=[k for k in stats if k.startswith("train_loss")])
     return state

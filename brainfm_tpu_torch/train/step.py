@@ -14,6 +14,16 @@ around the model only; parameters, gradients and optimizer state stay in
 the parameters' dtype, the heads' outputs are lifted to fp32 before the
 processors and the criterion, and bf16 needs no gradient scaler. (The JAX
 package's bf16 path computes the processors and the losses in bf16.)
+
+With a mesh (parallel/mesh.py) each rank holds its data rank's items.
+With a 'space' axis the model runs on this rank's D slab in a
+`space_scope`, its outputs are gathered whole and the criterion runs whole
+on every rank. Every rank backpropagates its loss times 1/(data x space)
+and one SUM of the gradients over the world (a flat all_reduce) is the
+gradient of the global batch; a model sharded with FSDP2, whose
+reduce-scatter averages over 'data', takes 1/space and an all_reduce over
+'space'. The gradient is clipped afterwards, as the JAX package clips the
+global gradient. The non-finite skip is one decision for every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +36,9 @@ from torch import nn
 
 from ..models.build import implicit_pathol_outputs, process_outputs
 from ..models.criterion import weighted_total
+from ..parallel.fsdp import is_sharded
+from ..parallel.mesh import axis_size
+from ..parallel.spatial import gather_outputs, slab_of, space_scope
 
 
 @dataclass
@@ -145,7 +158,8 @@ def _each(v, fn):
 
 
 def batch_losses(model, cfg, loss_fn, batch, amp: bool, critic=None,
-                 critic_image_key: str = "T1", detach_stage0: bool = False):
+                 critic_image_key: str = "T1", detach_stage0: bool = False,
+                 mesh=None):
     """Per-item losses of a batch, averaged over its B items. The model
     sees all B x S samples as one batch: GroupNorm is per sample, so this
     equals a forward per item. `critic`: the frozen implicit-pathology
@@ -162,12 +176,19 @@ def batch_losses(model, cfg, loss_fn, batch, amp: bool, critic=None,
         return a.reshape(B * S, *a.shape[2:])
 
     kw = {"detach_stage0": True} if detach_stage0 else {}
-    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=amp):
-        out = model(fold(x), cond=None if cond is None else fold(cond), **kw)
+    xin, cin = fold(x), None if cond is None else fold(cond)
+    with space_scope(mesh) as sc:
+        if sc is not None:
+            xin, cin = slab_of(xin, sc), slab_of(cin, sc)
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=amp):
+            out = model(xin, cond=cin, **kw)
     if "contrastive" not in cfg.tasks:
         # only the contrastive loss reads the features; dropping them
         # frees the fp32 unit-normalized last level, which nothing saves
         out = {k: v for k, v in out.items() if not k.startswith("feat")}
+    if sc is not None:
+        out = gather_outputs(out, sc)
     if amp:
         out = {k: _each(v, lambda t: t.float()) for k, v in out.items()}
     out = process_outputs(model, out, cfg)
@@ -198,21 +219,80 @@ def split_samples(batch, i: int, k: int):
     return mb
 
 
-def _finite_update(state: TrainState, total, losses, lr, wd, clip):
+def _local(t):
+    """A DTensor's local shard; any other tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _all_reduce_flat(tensors, group=None):
+    """SUM of every tensor over `group` in place, one bucket per dtype."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = _flatten_dense_tensors(ts)
+        dist.all_reduce(flat, group=group)
+        for t, r in zip(ts, _unflatten_dense_tensors(flat, ts)):
+            t.copy_(r)
+
+
+def _reduce_over_mesh(grads, total, losses, mesh):
+    """The world's SUM of the gradients (their shares, see the module
+    docstring), and the global batch's losses: the mean over the ranks
+    (equal on the ranks of one space group)."""
+    import torch.distributed as dist
+
+    if any(hasattr(g, "to_local") for g in grads):
+        # FSDP2 reduce-scattered over 'data' in the backward
+        if axis_size(mesh, "space") > 1:
+            _all_reduce_flat([_local(g) for g in grads],
+                             mesh.get_group("space"))
+    else:
+        _all_reduce_flat(grads)
+    n = dist.get_world_size()
+    names = sorted(losses)
+    every = [None] * n
+    dist.all_gather_object(every, names)
+    if any(e != names for e in every):
+        raise ValueError(f"the ranks' items give different losses {every}: "
+                         "a batch's items must share their targets")
+    vals = torch.stack([torch.as_tensor(total)]
+                       + [torch.as_tensor(losses[k]) for k in names])
+    dist.all_reduce(vals)
+    vals = vals / n
+    return vals[0], {k: vals[i + 1] for i, k in enumerate(names)}
+
+
+def _finite_update(state: TrainState, total, losses, lr, wd, clip,
+                   mesh=None):
     """Skip-on-non-finite update: with a non-finite total or gradient the
     params, every optimizer state tensor and state.step stay bitwise as
     they were, the losses report NaN and 'skipped' 1 (0 otherwise). The
-    check is one host sync per step."""
+    check is one host sync per step. With a mesh the gradients and
+    losses are reduced first and the skip is decided for every rank at
+    once (a MAX of the non-finite flag over the world)."""
     model, optimizer = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         if p.grad is None:   # a parameter the losses did not reach
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    if mesh is not None:
+        total, losses = _reduce_over_mesh(grads, total, losses, mesh)
     total = torch.as_tensor(total)
-    finite = bool(torch.stack([torch.isfinite(total).all()]
-                              + [torch.isfinite(g).all() for g in grads])
-                  .all())
+    ok = torch.stack([torch.isfinite(total).all()]
+                     + [torch.isfinite(_local(g)).all() for g in grads]).all()
+    if mesh is not None:
+        import torch.distributed as dist
+
+        bad = (~ok).to(total.dtype if total.is_floating_point()
+                       else torch.float32).reshape(1)
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+        ok = bad[0] == 0
+    finite = bool(ok)
     dev = total.device
     if finite:
         if clip is not None:
@@ -237,7 +317,7 @@ def _finite_update(state: TrainState, total, losses, lr, wd, clip):
 def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
                     sample_accum: int = 1, amp: bool | None = None,
                     critic=None, critic_image_key: str = "T1",
-                    train_stage0: bool = True):
+                    train_stage0: bool = True, mesh=None):
     """Returns `step(state, batch, lr, wd) -> (state, metrics)`.
 
     batch: {'samples': {...(B, S, ...)...}, 'targets': {...(B, 1, ...)...},
@@ -251,17 +331,26 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
     `train_stage0=False` (a TwoStage model): stage 0's output is detached,
     so its parameters get zero gradients; they stay in the optimizer and
     are stepped, as the JAX package's stop_gradient leaves them (AdamW's
-    decoupled decay and Adam's moments still move them)."""
+    decoupled decay and Adam's moments still move them). `mesh`: this
+    rank's share of a data-parallel (and space-sharded) step; the model
+    may be sharded with FSDP (parallel/fsdp.py)."""
     del model, optimizer   # the state carries both
     amp = amp_enabled(cfg, amp)
     clip = _clip_fn(cfg)
     k = int(sample_accum)
+    def scale(model):   # see the module docstring
+        n = axis_size(mesh, "space")
+        return 1.0 / n if is_sharded(model) else 1.0 / (
+            axis_size(mesh, "data") * n)
 
     def losses_and_total(model, batch):
         losses = batch_losses(model, cfg, loss_fn, batch, amp, critic,
                               critic_image_key,
-                              detach_stage0=not train_stage0)
+                              detach_stage0=not train_stage0, mesh=mesh)
         return weighted_total(losses, weight_dict), losses
+
+    def backward(t, model):
+        (t if mesh is None else t * scale(model)).backward()
 
     def step(state: TrainState, batch, lr, wd):
         model = state.model
@@ -269,7 +358,7 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
         state.optimizer.zero_grad(set_to_none=True)
         if k == 1:
             total, losses = losses_and_total(model, batch)
-            total.backward()
+            backward(total, model)
             total = total.detach()
             losses = {kk: v.detach() for kk, v in losses.items()}
         else:
@@ -279,7 +368,7 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
             totals, parts = [], []
             for i in range(k):
                 t, part = losses_and_total(model, split_samples(batch, i, k))
-                t.backward()   # .grad sums the microbatches
+                backward(t, model)   # .grad sums the microbatches
                 totals.append(t.detach())
                 parts.append({kk: v.detach() for kk, v in part.items()})
                 del t, part
@@ -289,18 +378,19 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
             total = torch.mean(torch.stack(totals))
             losses = {kk: torch.mean(torch.stack([p[kk] for p in parts]))
                       for kk in parts[0]}
-        return _finite_update(state, total, losses, lr, wd, clip)
+        return _finite_update(state, total, losses, lr, wd, clip, mesh)
 
     return step
 
 
 def make_twostage_train_step(model, cfg, weight_dict, loss_fn: Callable,
                              optimizer, train_stage0: bool = True,
-                             sample_accum: int = 1, amp: bool | None = None):
+                             sample_accum: int = 1, amp: bool | None = None,
+                             mesh=None):
     """The two-stage step over a TwoStage `model`: stage 0 predicts the
     mask, stage 1 sees the masked input conditioned on it, both stages
     under one optimizer; stage 0's sigmoid is kept, not squashed again by
     the processors. make_train_step with `train_stage0`."""
     return make_train_step(model, cfg, weight_dict, loss_fn, optimizer,
                            sample_accum=sample_accum, amp=amp,
-                           train_stage0=train_stage0)
+                           train_stage0=train_stage0, mesh=mesh)

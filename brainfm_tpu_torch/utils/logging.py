@@ -20,10 +20,9 @@ import numpy as np
 
 
 def _rank() -> int:
-    import torch.distributed as dist
+    from ..parallel.mesh import process_index
 
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
-        else 0
+    return process_index()
 
 
 def setup_logging(output=None, name="brainfm_tpu_torch", rank0_only=True):

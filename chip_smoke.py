@@ -101,9 +101,31 @@ Phases, one JSON line each:
                odeint_adjoint (rk4 values and gradients), GPU against CPU
                at fp64; then device times of grid_pull and grid_push at
                160^3 and synth_intensities at 192^3.
+ 19. multigpu_reference - MGPU_WORLD ranks, each a process of this script
+               on the one card (cuda:0), in a gloo process group (NCCL
+               refuses two ranks on one device; the line names the
+               backend): the L6 f_maps-16 joint model's fp64 step on
+               48^3 split in two D slabs against the same step unsharded
+               (loss 1e-12, gradient rel-L2 1e-9, TF32 off); one flagship
+               item per rank by per-rank synthesis, bitwise this
+               process's serial batch of the same per-item generators,
+               with K1 and K2 launches on each rank; the slice's L6
+               f_maps-64 weights serving a SERVE_WIN head over space=2 in
+               bf16 (timed, each rank's peak memory, beside one rank
+               alone and that rank's noise floor), then a
+               MGPU_EXACT_WIN head at fp64 against one rank alone
+               (MODEL_TOL, SEG_AGREE).
+ 20. multigpu - the training CLI with the flagship configs on the stream
+               phase's data root, launched as torchrun launches one rank
+               (RANK=0 WORLD_SIZE=1) with --mesh 1 --fsdp on NCCL:
+               MULTIGPU_WARM iterations, then MULTIGPU_TIMED timed ones
+               (per-rank item, step), peak memory and launches beside the
+               stream phase's figures.
 Then the elapsed seconds per phase, the `kernels` summary line (launches on
 every path), the card's name and power limit, and the result line. Exits
 non-zero, printing no result, when a phase fails or no GPU is present.
+With arguments the script is one of the processes it starts itself (a
+multigpu_reference rank, or the multigpu phase's CLI run).
 """
 
 from __future__ import annotations
@@ -111,6 +133,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import copy
+import gc
 import gzip
 import io
 import json
@@ -251,6 +274,27 @@ ATLAS_AGREE = 0.999
 VIS_LOSS_TOL = 1e-6
 # the interpol family, GPU against CPU at fp64: sums in other orders
 NUMERICS_TOL = 1e-10
+# multigpu_reference: two ranks share the one card, so their process group
+# is gloo (NCCL refuses two ranks on one device); the exchanges are built on
+# all_gather and all_reduce, which gloo stages through the host
+MGPU_BACKEND = "gloo"
+MGPU_WORLD = 2
+MGPU_SIZE = (48, 48, 48)     # levels 48, 24, 12 on slabs; 6, 3, 1 whole
+MGPU_F_MAPS = 16
+MGPU_LOSS_TOL = 1e-12
+MGPU_GRAD_TOL = 1e-9         # rel-L2 of the whole fp64 gradient
+# each tensor alone: the first GroupNorm weight's gradient is a sum that
+# cancels to ~1e-4 of its terms, so fp64 summation order moves it ~1e-9
+MGPU_TENSOR_TOL = 1e-7
+MGPU_TIMEOUT = 900
+# the served head's gate: fp64 at this window (5 of the 6 levels on
+# slabs); bf16 at SERVE_WIN is timed and compared, not gated: the random
+# L6 model carries a 2^-20 nudge of its input to outputs as far apart as
+# the sharded and the single bf16 runs are (see _mgpu_serve)
+MGPU_EXACT_WIN = (128, 128, 128)
+# multigpu: the training CLI with --mesh 1 --fsdp on NCCL, one rank
+MULTIGPU_WARM = 2
+MULTIGPU_TIMED = 2
 
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
@@ -1575,7 +1619,9 @@ def run_stream(dev, power, tmp):
           "launches": launches, "gpu": power})
     if bad:
         raise AssertionError(f"stream phase failed: {bad}")
-    return launches, root
+    figs = {k: [t[k] for t in timed] for k in ("item_ms", "step_ms",
+                                               "iter_ms")}
+    return launches, root, {**figs, "peak_mem_gib": peak}
 
 
 def run_pathology(dev, power):
@@ -2464,6 +2510,479 @@ def run_numerics(dev, power):
     return launches
 
 
+# ------------------------------------------------------------- multi-GPU
+
+def _free_port() -> str:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def _wait_all(procs, timeout, what):
+    """Wait for every process (killing the rest on a failure or at the
+    deadline); raise with the output tail of a process that failed."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what} process {i} exit {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    return outs
+
+
+def mgpu_cfg():
+    """The flagship config cut to the multigpu_reference model: L6,
+    f_maps MGPU_F_MAPS, MGPU_SIZE, no autocast."""
+    cfg = flagship_cfg()
+    cfg.f_maps, cfg.task_f_maps = MGPU_F_MAPS, [MGPU_F_MAPS]
+    cfg.generator.size = list(MGPU_SIZE)
+    cfg.amp, cfg.remat = False, False
+    return process_args(cfg)
+
+
+def mgpu_batch(cfg, dev):
+    """A random fp64 train batch of one item, S=2, on `dev`."""
+    B, S = 1, 2
+    rng = np.random.default_rng(3)
+    size = tuple(cfg.generator.size)
+    lab = rng.integers(0, cfg.n_labels, (B, 1, *size))
+    b = {"samples": {"input": rng.random((B, S, *size, 1)),
+                     "bias_field_log": 0.1 * rng.standard_normal(
+                         (B, S, *size, 1))},
+         "targets": {"T1": rng.random((B, 1, *size, 1)),
+                     "segmentation": np.eye(cfg.n_labels)[lab],
+                     "distance": rng.uniform(-2.5, 2.5, (B, 1, *size, 4)),
+                     "registration": rng.standard_normal((B, 1, *size, 3))}}
+    return {k: {kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()}
+            for k, v in b.items()}
+
+
+def _mgpu_loss_grads(model, cfg, batch, mesh):
+    """The train step's loss and this rank's gradient share (summed over
+    the world by the caller), or the whole without a mesh."""
+    from brainfm_tpu_torch.parallel.mesh import axis_size
+
+    _, w, fn = make_criterion(cfg)
+    model.zero_grad(set_to_none=True)
+    total = weighted_total(batch_losses(model, cfg, fn, batch, amp=False,
+                                        mesh=mesh), w)
+    scale = 1.0 if mesh is None else 1.0 / (axis_size(mesh, "data")
+                                            * axis_size(mesh, "space"))
+    (total * scale).backward()
+    return float(total), {k: p.grad.detach().clone()
+                          for k, p in model.named_parameters()}
+
+
+def _mgpu_unet(dev, mesh, rank):
+    """Check 1: the space-sharded L6 step at fp64 against the same model
+    unsharded on the card (rank 0)."""
+    cfg = mgpu_cfg()
+    torch.manual_seed(0)
+    _, model = build_model(cfg, device=dev)
+    model.double()
+    batch = mgpu_batch(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = _mgpu_loss_grads(model, cfg, batch, mesh)
+    for g in grads.values():
+        torch.distributed.all_reduce(g)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    out = {"loss": loss, "step_ms": sharded_ms}
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref_loss, ref = _mgpu_loss_grads(model, cfg, batch, None)
+        torch.cuda.synchronize()
+        out["unsharded_ms"] = (time.perf_counter() - t0) * 1e3
+        keys = sorted(ref)
+        a = torch.cat([grads[k].flatten() for k in keys])
+        b = torch.cat([ref[k].flatten() for k in keys])
+        out["loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+        out["grad_rel_l2"] = float((a - b).norm() / b.norm())
+        per = {k: float((grads[k] - ref[k]).norm()
+                        / max(float(ref[k].norm()), 1e-300)) for k in keys}
+        out["tensor_rel_l2_max"] = max(per.values())
+        out["tensor_rel_l2_argmax"] = max(per, key=per.get)
+    return out
+
+
+def _tensor_hashes(batch, row=None):
+    import hashlib
+
+    out = {}
+    for part in ("targets", "samples"):
+        for k, v in batch[part].items():
+            a = v.detach().cpu().numpy()
+            if row is not None:
+                a = a[row:row + 1]
+            out[f"{part}.{k}"] = hashlib.sha256(
+                np.ascontiguousarray(a).tobytes()).hexdigest()
+    return out
+
+
+def _mgpu_synth_setup(dev):
+    from brainfm_tpu_torch.synth.datasets import item_generator
+
+    cfg = process_args(flagship_cfg())
+    scfg = SynthStatic.from_cfg(cfg)
+    bank = SubjectBank(BANK)
+    bank.add_debug_subject(seed=0)
+    gens = [item_generator(0, 0, i, dev) for i in range(MGPU_WORLD)]
+    return cfg, scfg, bank.to_device(0, dev), gens, knobs_from_cfg(
+        cfg, scfg, "synth")
+
+
+def _mgpu_synth(dev, mesh):
+    """Check 2: this rank's flagship item by per-rank synthesis; its
+    tensors' hashes (held by the parent against its serial batch) and the
+    kernels' launches on the rank."""
+    from brainfm_tpu_torch.synth.sharded import sharded_synth_batch
+
+    cfg, scfg, subj, gens, knobs = _mgpu_synth_setup(dev)
+    # warm-up (handles, allocator) on other generators
+    from brainfm_tpu_torch.synth.datasets import item_generator
+
+    sharded_synth_batch(mesh, [item_generator(9, 0, i, dev)
+                               for i in range(MGPU_WORLD)], subj, scfg,
+                        cfg.tasks, "synth", knobs)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    batch = sharded_synth_batch(mesh, gens, subj, scfg, cfg.tasks, "synth",
+                                knobs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    return {"hashes": _tensor_hashes(batch), "item_ms": ms,
+            "launches": launches,
+            "rows": int(batch["samples"]["input"].shape[0])}
+
+
+def _serve_compare(got, ref):
+    return ({k: _rel_err(got[k], ref[k]) for k in ref if k != "label"},
+            float((got["label"] == ref["label"]).float().mean()))
+
+
+def _mgpu_serve(dev, mesh, pth, rank):
+    """Check 3: the slice's weights serving one procedural head over
+    space=2. In bf16 at SERVE_WIN (timed, peak memory per rank), held
+    beside rank 0 serving it alone and beside rank 0 serving the head
+    scaled by 1 + 2^-20 (the bf16 model's own noise floor); then at fp64
+    at MGPU_EXACT_WIN against rank 0 alone, the gate."""
+    def make(dtype, exact):
+        return Inferencer(flagship_cfg(), ckpt_path=pth, compute_dtype=dtype,
+                          exact=exact, device=dev, mesh=mesh)
+
+    def alone(inf, x):   # rank 0 serves x without the mesh
+        inf.mesh = None
+        out = inf.evaluate_image(x, keep_feat=False)
+        torch.cuda.synchronize()
+        inf.mesh = mesh
+        return out
+
+    inf = make(torch.bfloat16, False)
+    vol = procedural_head(SERVE_WIN, (1.0, 1.0, 1.0), 21, dev)
+    inf.evaluate_image(vol, keep_feat=False)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = inf.evaluate_image(vol, keep_feat=False)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "launches": dict(kernels.LAUNCHES),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "shape": list(got["label"].shape),
+           "finite": all(bool(torch.isfinite(v.float()).all())
+                         for v in got.values())}
+    if rank != 0:
+        del got
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        alone(inf, vol)   # warm-up alone
+        t0 = time.perf_counter()
+        ref = alone(inf, vol)
+        out["single_ms"] = (time.perf_counter() - t0) * 1e3
+        out["bf16_rel_err"], out["bf16_label_agree"] = _serve_compare(got,
+                                                                      ref)
+        del got
+        nudged = alone(inf, vol * np.float32(1 + 2 ** -20))
+        out["bf16_floor_rel_err"], out["bf16_floor_label_agree"] = \
+            _serve_compare(nudged, ref)
+        del nudged, ref
+    del inf
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+    inf = make(torch.float64, True)
+    vol = procedural_head(MGPU_EXACT_WIN, (1.0, 1.0, 1.0), 22, dev)
+    got = inf.evaluate_image(vol, keep_feat=False)
+    torch.cuda.synchronize()
+    if rank != 0:
+        del got, inf
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        out["fp64_rel_err"], out["fp64_label_agree"] = _serve_compare(
+            got, alone(inf, vol))
+        del got, inf
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def multigpu_rank(rank, world, port, out_path, pth):
+    """One rank of multigpu_reference (a process of its own on the card)."""
+    import faulthandler
+
+    from brainfm_tpu_torch.parallel import init_distributed, make_mesh
+
+    faulthandler.enable()   # a crashed rank shows where
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", world, rank, backend=MGPU_BACKEND)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    space = make_mesh(1, world, device_type="cuda")
+    data = make_mesh(world, 1, device_type="cuda")
+    res = {"rank": rank, "backend": torch.distributed.get_backend()}
+    # No FSDP check here: two ranks of FSDP2 over gloo on CUDA segfault on
+    # the H100 (a 2-layer Linear and the L3 joint model, fp32 and fp64, at
+    # the latest in DTensor.full_tensor: brainfm_tpu_torch/scripts/
+    # probe_fsdp_gloo.py), so FSDP2 against the replicated step stays with
+    # the CPU test (tests/test_torch_fsdp.py); the multigpu phase runs
+    # FSDP2 on NCCL.
+    checks = [("unet", lambda: _mgpu_unet(dev, space, rank)),
+              ("synth", lambda: _mgpu_synth(dev, data)),
+              ("serve", lambda: _mgpu_serve(dev, space, pth, rank))]
+    for name, check in checks:
+        print(f"rank {rank}: {name}", flush=True)
+        res[name] = check()
+        torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_multigpu_reference(dev, power, pth, tmp):
+    """MGPU_WORLD ranks, each a process of this script on the one card
+    (cuda:0), in a gloo process group (MGPU_BACKEND): the space-sharded
+    fp64 step against the unsharded one, one flagship item per rank by
+    per-rank synthesis against this process's serial batch (bitwise),
+    and the slice's model serving a head over space=2 (bf16 at SERVE_WIN,
+    fp64 at MGPU_EXACT_WIN) against one rank alone (_mgpu_serve). The
+    kernels' libraries are built by this process before the spawn.
+    Returns the launches summed over the ranks."""
+    port = _free_port()
+    env = dict(os.environ)
+    env.pop("LOCAL_RANK", None)
+    outs = [os.path.join(tmp, f"mgpu_rank{r}.json")
+            for r in range(MGPU_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(MGPU_WORLD), "--port", port, "--out", outs[r],
+         "--pth", pth], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=env, text=True) for r in range(MGPU_WORLD)]
+    _wait_all(procs, MGPU_TIMEOUT, "multigpu_reference rank")
+    ranks_s = time.perf_counter() - t0
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+
+    # the serial batch of the same per-item generators, in this process
+    cfg, scfg, subj, gens, knobs = _mgpu_synth_setup(dev)
+    serial = make_batch(gens, subj, scfg, cfg.tasks, "synth", knobs)
+    synth_equal = [res[r]["synth"]["hashes"] == _tensor_hashes(serial, r)
+                   for r in range(MGPU_WORLD)]
+    del serial, subj
+    torch.cuda.empty_cache()
+
+    launches = {k: sum(r["synth"]["launches"][k] + r["serve"]["launches"][k]
+                       for r in res) for k in kernels.LAUNCHES}
+    u, sv = res[0]["unet"], res[0]["serve"]
+    bad = {}
+    if not (u["loss_rel"] <= MGPU_LOSS_TOL and u["grad_rel_l2"]
+            <= MGPU_GRAD_TOL and u["tensor_rel_l2_max"] <= MGPU_TENSOR_TOL):
+        bad["unet"] = u
+    if not all(synth_equal) or any(r["synth"]["rows"] != 1 for r in res):
+        bad["synth_equal"] = synth_equal
+    if not all(v <= MODEL_TOL for v in sv["fp64_rel_err"].values()) \
+            or sv["fp64_label_agree"] < SEG_AGREE or not sv["finite"]:
+        bad["serve"] = sv
+    for r in res:
+        sl = r["synth"]["launches"]
+        if sl["warp_linear_f32"] < 1 or sl["lut_gather_i32"] < 1 \
+                or sl["lut_gather_f32"] < 1 \
+                or r["serve"]["launches"]["lut_gather_i32"] < 1:
+            bad[f"rank{r['rank']}_launches"] = [sl, r["serve"]["launches"]]
+    emit({"phase": "multigpu_reference", "ranks": MGPU_WORLD,
+          "backend": res[0]["backend"],
+          "backend_why": "two ranks share one card; NCCL refuses that",
+          "unet": {"size": list(MGPU_SIZE), "f_maps": MGPU_F_MAPS,
+                   "num_levels": 6, "dtype": "float64", **u,
+                   "loss_tol": MGPU_LOSS_TOL, "grad_tol": MGPU_GRAD_TOL,
+                   "tensor_tol": MGPU_TENSOR_TOL},
+          "synth": {"bitwise_serial": synth_equal,
+                    "item_ms": [r["synth"]["item_ms"] for r in res],
+                    "launches_per_rank": [r["synth"]["launches"]
+                                          for r in res]},
+          "serve": {"win": list(SERVE_WIN), "dtype": "bfloat16",
+                    "space": MGPU_WORLD,
+                    "ms": [r["serve"]["ms"] for r in res],
+                    "single_ms": sv["single_ms"],
+                    "peak_mem_gib": [r["serve"]["peak_mem_gib"]
+                                     for r in res],
+                    "bf16_rel_err": sv["bf16_rel_err"],
+                    "bf16_label_agree": sv["bf16_label_agree"],
+                    "bf16_floor_rel_err": sv["bf16_floor_rel_err"],
+                    "bf16_floor_label_agree": sv["bf16_floor_label_agree"],
+                    "fp64_win": list(MGPU_EXACT_WIN),
+                    "fp64_rel_err": sv["fp64_rel_err"],
+                    "fp64_label_agree": sv["fp64_label_agree"],
+                    "model_tol": MODEL_TOL, "seg_agree_min": SEG_AGREE,
+                    "launches_per_rank": [r["serve"]["launches"]
+                                          for r in res]},
+          "fsdp": "with the CPU test: FSDP2 over gloo on CUDA segfaulted",
+          "ranks_s": ranks_s, "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"multigpu_reference failed: {bad}")
+    return launches
+
+
+def cli_timed(out_json, args):
+    """scripts/train.py::main(args) with every train step and every
+    per-rank batch synthesis timed (each ended by a synchronize); writes
+    {steps, launches, peak_mem_gib, stdout} to out_json."""
+    from brainfm_tpu_torch.synth.datasets import SynthDataset
+    from brainfm_tpu_torch.train import loop
+
+    steps, items = [], []
+    make, get = loop.make_train_step, SynthDataset.get_batch_sharded
+
+    def timed_get(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = get(self, *a, **k)
+        torch.cuda.synchronize()
+        items.append((time.perf_counter() - t0) * 1e3)
+        return b
+
+    def timed_make(*a, **k):
+        step = make(*a, **k)
+
+        def run(state, batch, lr, wd):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, lr, wd)
+            torch.cuda.synchronize()
+            steps.append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                          "loss_total": float(m["loss_total"]),
+                          "skipped": int(m["skipped"])})
+            return state, m
+        return run
+
+    loop.make_train_step = timed_make
+    SynthDataset.get_batch_sharded = timed_get
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    text = _run_cli(args)
+    res = {"steps": steps, "item_ms": items,
+           "launches": dict(kernels.LAUNCHES),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "stdout": text[-4000:]}
+    with open(out_json, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_multigpu(dev, power, root, tmp, stream_figs):
+    """The training CLI with the flagship configs on the stream phase's
+    data root, launched as torchrun launches one rank (RANK=0,
+    WORLD_SIZE=1, NCCL) with --mesh 1 --fsdp: MULTIGPU_WARM iterations,
+    then MULTIGPU_TIMED timed ones (the per-rank item, the step), beside
+    the single-device stream phase's figures. The run that reaches
+    init_distributed's environment path, NCCL and FSDP2 at full width."""
+    gen_yaml = os.path.join(tmp, "mgpu_gen.yaml")
+    with open(os.path.join(ROOT, "cfgs/generator/train/brain_id.yaml")) as f:
+        text = f.read()
+    with open(gen_yaml, "w") as f:
+        f.write(f"{text}\ndata_root: {root[0]}\nsplit_root: {root[1]}\n"
+                f"dataset_names: {list(STREAM_DATASETS)}\n")
+    out = os.path.join(tmp, "mgpu_run")
+    n = MULTIGPU_WARM + MULTIGPU_TIMED
+    args = ["--gen_cfg", gen_yaml, "--train_cfg", "joint", "--epochs", "1",
+            "--itr_per_epoch", str(n), "--out_dir", out, "--remat",
+            TRAIN_REMAT, "--grad_accum", str(TRAIN_ACCUM), "--mesh", "1",
+            "--fsdp"]
+    res_path = os.path.join(tmp, "mgpu_cli.json")
+    # the run peaks at the stream phase's 58 GiB beside this process on
+    # the card; expandable segments keep FSDP2's and remat's differently
+    # sized blocks from fragmenting the rest (one run without them failed
+    # to find 5.9 GiB with 10.9 GiB reserved and unallocated)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gib = torch.cuda.memory_reserved() / 2 ** 30
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=_free_port(),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cli-timed", res_path,
+         "--", *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=env, text=True)
+    _wait_all([proc], MGPU_TIMEOUT, "multigpu CLI")
+    cli_s = time.perf_counter() - t0
+    with open(res_path) as f:
+        res = json.load(f)
+    timed = [{"item_ms": i, **s} for i, s in zip(res["item_ms"][-MULTIGPU_TIMED:],
+                                                 res["steps"][-MULTIGPU_TIMED:])]
+    for t in timed:
+        t["iter_ms"] = t["item_ms"] + t["step_ms"]
+    launches = res["launches"]
+    bad = []
+    if len(res["steps"]) != n or not all(
+            np.isfinite(s["loss_total"]) and s["skipped"] == 0
+            for s in res["steps"]):
+        bad.append(f"steps {res['steps']}")
+    if f"final step {n}" not in res["stdout"]:
+        bad.append(res["stdout"][-1500:])
+    if launches["warp_linear_f32"] < 1 or launches["lut_gather_i32"] < 1 \
+            or launches["lut_gather_f32"] < 1:
+        bad.append(f"path missed a kernel: {launches}")
+    if not os.path.isdir(os.path.join(out, "ckp", f"ckpt_{n:06d}")):
+        bad.append("no checkpoint")
+    emit({"phase": "multigpu", "mesh": "1 (data) x 1 (space)", "fsdp": True,
+          "backend": "nccl", "launch": "RANK=0 WORLD_SIZE=1 (torchrun env)",
+          "size": list(flagship_cfg().generator.size), "amp": "bf16",
+          "remat": TRAIN_REMAT, "iterations": n, "timed": timed,
+          "item_ms": [t["item_ms"] for t in timed],
+          "step_ms": [t["step_ms"] for t in timed],
+          "iter_ms": [t["iter_ms"] for t in timed],
+          "peak_mem_gib": res["peak_mem_gib"],
+          "single_device_stream": stream_figs, "cli_s": cli_s,
+          "parent_reserved_gib": parent_gib,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"multigpu phase failed: {bad}")
+    return launches
+
+
 def run_after_slice(dev, power, state, ckpt, lap):
     """The phases after the slice, each ended by lap(name); the slice's
     `state` is served by `serve`, its .pth `ckpt` by `evaluate`. Returns
@@ -2483,8 +3002,13 @@ def run_after_slice(dev, power, state, ckpt, lap):
     with tempfile.TemporaryDirectory() as tmp:
         check_stream_reference(dev, tmp)
         lap("stream_reference")
-        stream_launches, root = run_stream(dev, power, tmp)
+        stream_launches, root, stream_figs = run_stream(dev, power, tmp)
         lap("stream")
+        # the data root stays for the multigpu phase
+        held = tempfile.mkdtemp()
+        shutil.move(os.path.dirname(root[0]), held)
+        base = os.path.join(held, os.path.basename(os.path.dirname(root[0])))
+        root = tuple(os.path.join(base, os.path.basename(r)) for r in root)
         torch.cuda.empty_cache()
         pathology_launches = run_pathology(dev, power)
         lap("pathology")
@@ -2508,16 +3032,41 @@ def run_after_slice(dev, power, state, ckpt, lap):
     torch.cuda.empty_cache()
     numerics_launches = run_numerics(dev, power)
     lap("numerics_reference")
+    torch.cuda.empty_cache()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mgpu_ref_launches = check_multigpu_reference(dev, power, ckpt,
+                                                         tmp)
+            lap("multigpu_reference")
+            mgpu_launches = run_multigpu(dev, power, root, tmp, stream_figs)
+            lap("multigpu")
+    finally:
+        shutil.rmtree(held, ignore_errors=True)
     return {"serve": serve_launches, "train": train_launches,
             "stream": stream_launches, "pathology": pathology_launches,
             "variants": variants_launches, "twostage": twostage_launches,
-            "evaluate": evaluate_launches, "numerics": numerics_launches}
+            "evaluate": evaluate_launches, "numerics": numerics_launches,
+            "multigpu_reference": mgpu_ref_launches,
+            "multigpu": mgpu_launches}
+
+
+def _sub_main(argv):
+    """The processes this script starts: `--rank R --world W --port P
+    --out JSON --pth PTH` (a multigpu_reference rank) or `--cli-timed JSON
+    -- ARGS` (the multigpu phase's training CLI)."""
+    if argv[0] == "--cli-timed":
+        return cli_timed(argv[1], argv[3:])
+    a = dict(zip(argv[::2], argv[1::2]))
+    return multigpu_rank(int(a["--rank"]), int(a["--world"]), a["--port"],
+                         a["--out"], a["--pth"])
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1:
+        return _sub_main(sys.argv[1:])
     dev = torch.device("cuda")
     # fp32 parity needs full fp32 matmuls and convolutions
     torch.backends.cuda.matmul.allow_tf32 = False

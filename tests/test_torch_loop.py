@@ -4,8 +4,7 @@ loop: checkpoints in its format, train() with a resume that ends bitwise
 where an uninterrupted run ends, train() on the dataset stream, the
 training CLI (from a data root in the DATASET_SETUPS layout, and
 --eval_only), the two-stage pair and the critic through train() and the
-CLI, and every branch that is not ported yet (each raises
-NotImplementedError)."""
+CLI, and the checks of the mesh and FSDP arguments."""
 
 import functools
 import importlib.util
@@ -355,12 +354,15 @@ def test_cli_debug_run_on_cpu(tmp_path, capsys, small_bank):
                                 {"mesh": object()}, {"fsdp": True},
                                 {"twostage_models": "the pair"},
                                 {"vis_itr": 5}])
-def test_train_refuses_what_is_not_ported(tmp_path, kw):
-    """mesh= and fsdp raise. Three cases that were refused before their
-    slices were ported now train: stream= (two debug datasets' stream, no
-    bank), twostage_models= (the joint config on an 'a+b' backbone: stage
-    0 learns through stage 1's losses alone) and vis_itr (the montage,
-    the feature strips of the config's `visualizer` section)."""
+def test_train_checks_its_arguments(tmp_path, kw):
+    """A mesh that is not a DeviceMesh raises TypeError, and fsdp=True
+    without a mesh ValueError with the JAX loop's message (mesh training
+    itself is tests/test_torch_mesh_train.py). Three cases that were
+    refused before their slices were ported train: stream= (two debug
+    datasets' stream, no bank), twostage_models= (the joint config on an
+    'a+b' backbone: stage 0 learns through stage 1's losses alone) and
+    vis_itr (the montage, the feature strips of the config's
+    `visualizer` section)."""
     torch.manual_seed(0)
     cfg, model = build_model(_small_train_cfg(1), device="cpu")
     _, w, fn = make_criterion(cfg)
@@ -398,8 +400,12 @@ def test_train_refuses_what_is_not_ported(tmp_path, kw):
         assert os.listdir(tmp_path / "vis") == ["vis_0000000.png"]
         assert os.listdir(tmp_path / "vis_feat") == ["feat_0000000.png"]
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        loop.train(cfg, model, w, fn, None, str(tmp_path), **kw)
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            loop.train(cfg, model, w, fn, _bank(), str(tmp_path), **kw)
+        return
+    with pytest.raises(ValueError, match="fsdp=True requires a mesh"):
+        loop.train(cfg, model, w, fn, _bank(), str(tmp_path), **kw)
 
 
 def test_train_refuses_the_critic_flag(tmp_path):
@@ -424,9 +430,11 @@ def test_train_refuses_the_critic_flag(tmp_path):
 
 @pytest.mark.parametrize("case", ["mesh", "fsdp", "eval_only", "data_root",
                                   "twostage"])
-def test_cli_refuses_what_is_not_ported(tmp_path, capsys, small_bank, case):
-    """--mesh and --fsdp raise. The cases that were refused before their
-    slices were ported now run: a data root in the DATASET_SETUPS layout
+def test_cli_checks_its_arguments(tmp_path, capsys, small_bank, case):
+    """--fsdp without --mesh is an argparse error, and --mesh 2 in a
+    one-process world raises the mesh's world-size error. The cases that
+    were refused before their slices were ported run: a data root in the
+    DATASET_SETUPS layout
     trains on its subjects (read through the codec); --eval_only without
     --resume is an error, and with the checkpoint of that run scores the
     stream's validation set; a two-stage backbone trains the pair."""
@@ -458,9 +466,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, small_bank, case):
                            "model.pt", weights_only=True)
         assert {k.split(".")[0] for k in state} == {"pathol", "task"}
         return
-    args += {"mesh": ["--mesh", "2"], "fsdp": ["--fsdp"]}[case]
-    with pytest.raises(NotImplementedError):
-        train_script.main(args)
+    if case == "fsdp":
+        with pytest.raises(SystemExit):
+            train_script.main([*args, "--fsdp"])
+        assert "--fsdp requires --mesh" in capsys.readouterr().err
+        return
+    with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
+        train_script.main([*args, "--mesh", "2"])
 
 
 def test_build_bank_reads_the_flat_layout(tmp_path):

@@ -279,9 +279,19 @@ def test_stream_plan_matches_jax_over_two_epochs(monkeypatch, data_root):
     assert plans["got"] == plans["want"]
     assert {m for m, _ in plans["got"][1::2]} >= {"synth", "T1"}
     assert len({p for _, p in plans["got"][1::2]}) == 2   # both lesions
-    with pytest.raises(NotImplementedError,
-                       match="multi-GPU slice, ROADMAP Queue 1 item 5"):
-        got["HCP"].get_group([0])
+    # the grouped draw of per-rank synthesis: every modality first, then
+    # the lesions in item order, as the JAX get_group
+    for n in ("HCP", "ATLAS"):
+        for idxs in ([0, 1], [1, 1, 0]):
+            gs, gm = got[n].get_group(idxs)
+            ws, wm = want[n].get_group(idxs)
+            assert gm == wm
+            assert (gs is None) == (ws is None)
+            if gs is not None:
+                assert sorted(gs[0]) == sorted(ws)
+                for i, subj in enumerate(gs):
+                    for k, v in subj.items():
+                        assert _same(np.asarray(v), np.asarray(ws[k][i])), k
 
 
 def test_stream_item_matches_jax(data_root):
