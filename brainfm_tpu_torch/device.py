@@ -19,6 +19,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def card_label(device) -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (a
+    card set below its full power limit runs slower under load), or the
+    device type off CUDA."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[dev.index or 0]
+
+
 class _TF32Scope:
     """Process-wide count of the threads inside `exact_fp32`: TF32 is off
     while the count is above 0 and the caller's flags come back when it

@@ -1,6 +1,6 @@
 """Profiling and tracing hooks (port of brainfm_tpu/utils/profiling.py):
-a `torch.profiler` trace, named regions, device-memory counters and a
-synchronizing step timer."""
+a `torch.profiler` trace, named regions, device-memory counters, a
+synchronizing step timer and a per-call device clock."""
 
 from __future__ import annotations
 
@@ -91,3 +91,28 @@ class StepTimer:
     def mean(self):
         return sum(self.times) / max(len(self.times), 1)
 
+
+def call_times(fn, device, reps: int, warmup: int = 1) -> list[float]:
+    """ms of each of `reps` calls of fn() after `warmup` untimed ones. On a
+    CUDA `device`: a pair of CUDA events around each call, the calls
+    queued back to back and the events read after one synchronize, so a
+    call's launch overlaps the one before it; the host clock elsewhere."""
+    dev = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    if dev.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize(dev)
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize(dev)
+    return [start.elapsed_time(end) for start, end in events]

@@ -7,8 +7,9 @@ Phases, one JSON line each:
   1. build   - compile the CUDA kernels of brainfm_tpu_torch/csrc (nvcc,
                sm_90a, one process per source, all at once).
   2. kernel  - each kernel against its plain PyTorch version on the card, at
-               the generator path's and the serving path's shapes, edge
-               cases included (`kernel_cases`); kernel (warm and cold L2),
+               the generator path's, the serving path's and the bench's
+               generator stage's shapes, edge cases included
+               (`kernel_cases`); kernel (warm and cold L2),
                plain and library times (CUDA events) beside the byte bound.
                K1 linear at C=12 is also timed on 4 flagship deformation
                draws (seeds 0-3).
@@ -121,6 +122,17 @@ Phases, one JSON line each:
                MULTIGPU_WARM iterations, then MULTIGPU_TIMED timed ones
                (per-rank item, step), peak memory and launches beside the
                stream phase's figures.
+ 21. roofline - brainfm_tpu_torch/scripts/roofline.py: the card's delivered
+               bf16 matmul and conv3d rates, elementwise and GroupNorm +
+               LeakyReLU bytes/s at 220^3 x 64, and the FLOP counts of the
+               220^3 forward and the bench's train steps; a rate above 105 %
+               of the data sheet's peak fails.
+ 22. bench   - python -m brainfm_tpu_torch.bench at full size in a child
+               process: contract lines only on its stdout, every key of
+               the root bench's summary, min <= median <= max for each,
+               no failed stage, K1 and K2 launched per generator item;
+               its whole-volume and generator clocks beside the serve
+               phase's forward and the slice's item.
 Then the elapsed seconds per phase, the `kernels` summary line (launches on
 every path), the card's name and power limit, and the result line. Exits
 non-zero, printing no result, when a phase fails or no GPU is present.
@@ -137,6 +149,7 @@ import gc
 import gzip
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -153,6 +166,7 @@ import torch.nn.functional as F
 
 from brainfm_tpu_torch import kernels
 from brainfm_tpu_torch.config import load_config
+from brainfm_tpu_torch.device import card_label
 from brainfm_tpu_torch.infer import (Inferencer, TwoStageInferencer,
                                      get_deformed_atlas, prepare_image,
                                      tile_plan)
@@ -296,6 +310,19 @@ MGPU_EXACT_WIN = (128, 128, 128)
 MULTIGPU_WARM = 2
 MULTIGPU_TIMED = 2
 
+# roofline: no delivered rate may pass the data sheet's peak by more
+ROOFLINE_MARGIN = 1.05
+# bench: the child process's limit, and the summary keys of the root
+# bench.py (its STAGES), which the port's bench must all print
+BENCH_TIMEOUT = 900
+BENCH_SUMMARY = "# BENCH SUMMARY "
+JAX_SUMMARY_KEYS = ("primary_compile_s", "whole_volume_ms",
+                    "primary_vols_per_sec", "vs_baseline", "train_compile_s",
+                    "train_step_ms", "generator_compile_s",
+                    "generator_ms_per_item", "generator_pathol_compile_s",
+                    "generator_pathol_ms_per_item", "tiled_compile_s",
+                    "tiled_fp32_ms", "cache_cold")
+
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
            "lut_gather_i32": "brainfm_tpu_torch/csrc/lut.cu",
@@ -311,10 +338,7 @@ def emit(obj):
 
 
 def gpu_name_power() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return card_label("cuda")
 
 
 def time_ms(fn, reps=20, warmup=3, cold=False) -> float:
@@ -625,6 +649,22 @@ def kernel_cases(scfg, dev) -> list:
     cases.append(lut_case("lut_gather_f32 K=256 C=2 intensities",
                           torch.rand((256, 2), generator=g, device=dev) * 200,
                           BANK))
+
+    # the bench's generator stage (S=2): its wall of T1, 4 distance, 3
+    # registration and 2 synthetic channels, per-channel defaults (C=10
+    # takes the one-channel route: 10 % 4 != 0), and the (256, 2S) lookup
+    # of its contrasts
+    src10 = torch.randn(BANK + (10,), generator=g, device=dev)
+    d10 = torch.randn(10, generator=g, device=dev)
+    cases.append(Case(
+        "warp_linear_f32 C=10 wall", "warp_linear_f32",
+        lambda: warp_volume(src10, egrid, default=d10),
+        lambda: trilinear3d(src10, *egrid, d10),
+        grid_sample_yardstick(src10, egrid, "bilinear", d10),
+        linear_bytes(BANK, egrid, 10), exact=False))
+    cases.append(lut_case("lut_gather_f32 K=256 C=4",
+                          torch.rand((256, 4), generator=g, device=dev) * 200,
+                          BANK))
     return cases
 
 
@@ -646,15 +686,18 @@ SERVING_CASES = ("warp_linear_f32 C=1 atlas", "lut_gather_i32 K=56 labels")
 EVALUATE_CASES = ("warp_linear_f32 C=1 acquisition",
                   "lut_gather_i32 K=10000 onehot")
 NUMERICS_CASES = ("lut_gather_f32 K=256 C=2 intensities",)
+# the bench's generator stage: K1 nearest and K2 i32 at the generator
+# path's shapes (the first cases), K1 linear and K2 f32 at these
+BENCH_CASES = ("warp_linear_f32 C=10 wall", "lut_gather_f32 K=256 C=4")
 # the `kernels` line's key for each path's own cases
 PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
-              "numerics_case": NUMERICS_CASES}
+              "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES}
 
 
 def check_kernels(scfg, dev):
     """Each case against its plain version, timed; the first case of each
     C function stands for it in the `kernels` line, the serving,
-    evaluation and numerics cases beside it. Then the cold timing's floor
+    evaluation, numerics and bench cases beside it. Then the cold timing's floor
     (an empty pair of events) and K1 C=12 on 4 deformation draws. Returns
     (records by C function, {PATH_CASES key: records by C function})."""
     recs = {}
@@ -937,7 +980,7 @@ def run_slice(cfg, dev, power):
           "forward_ms": fwd_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "launches": launches, "gpu": power})
-    return launches, model.state_dict()
+    return launches, model.state_dict(), item_ms
 
 
 def check_serve_reference(dev, tmp):
@@ -1122,7 +1165,7 @@ def run_serve(cfg, state, dev, power, tmp):
           "launches": launches, "gpu": power})
     if bad:
         raise AssertionError(f"serve phase failed: {bad}")
-    return launches
+    return launches, [st["forward_ms"] for st in stages]
 
 
 def train_ref_cfg():
@@ -2983,14 +3026,102 @@ def run_multigpu(dev, power, root, tmp, stream_figs):
     return launches
 
 
-def run_after_slice(dev, power, state, ckpt, lap):
+def run_roofline(dev, power):
+    """The roofline twin (brainfm_tpu_torch/scripts/roofline.py) in this
+    process: the delivered matmul, conv, elementwise and GroupNorm-chain
+    rates, then the FLOP counts of the 220^3 forward and the bench's two
+    train steps. No rate may pass ROOFLINE_MARGIN of the data sheet's
+    peak: no card delivers that, so such a reading is a timing fault."""
+    from brainfm_tpu_torch.scripts import roofline
+
+    recs = [{"probe": name, "kind": kind, **rec}
+            for kind, gen in (("rate", roofline.probes(dev)),
+                              ("flops", roofline.flop_counts(dev)))
+            for name, rec in gen]
+    bad = [r["probe"] for r in recs for k, peak in roofline.PEAK.items()
+           if k in r and not 0 < r[k] <= ROOFLINE_MARGIN * peak]
+    bad += [r["probe"] for r in recs if r["kind"] == "flops"
+            and not r["flops"] > 0]
+    emit({"phase": "roofline", "peak": roofline.PEAK,
+          "margin": ROOFLINE_MARGIN, "probes": recs, "gpu": power})
+    if bad:
+        raise AssertionError(f"roofline readings out of bounds: {bad}")
+
+
+def run_bench(power, figures):
+    """`python -m brainfm_tpu_torch.bench` as a child process at full size:
+    its standard output holds only contract lines, the last with a finite
+    value above 0; its summary (the last line of standard error) has every
+    key of the root bench's summary, no failed stage, min <= median <= max
+    for every timed key, and the generator stage launched K1 linear, K1
+    nearest and K2 f32 once per item and K2 i32 once or twice (with the
+    vflip). Its whole-volume and generator clocks are printed beside the
+    serve phase's forward and the slice's item (`figures`), not gated.
+    Returns the bench's launches over its timed calls."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "brainfm_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    bad = []
+    if proc.returncode != 0:
+        bad.append(f"exit {proc.returncode}: {proc.stderr[-3000:]}")
+    contract = []
+    for line in proc.stdout.splitlines():
+        try:
+            contract.append(json.loads(line))
+        except json.JSONDecodeError:
+            bad.append(f"not a contract line: {line[:200]!r}")
+    if not contract or any(
+            not isinstance(c, dict)
+            or set(c) != {"metric", "value", "unit", "vs_baseline"}
+            or c["metric"] != "inference_vols_per_sec_per_chip"
+            for c in contract):
+        bad.append(f"contract lines {contract}")
+    elif not (math.isfinite(contract[-1]["value"])
+              and contract[-1]["value"] > 0):
+        bad.append(f"contract value {contract[-1]['value']}")
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    summary = (json.loads(last[len(BENCH_SUMMARY):])
+               if last.startswith(BENCH_SUMMARY) else {})
+    missing = [k for k in JAX_SUMMARY_KEYS if k not in summary]
+    if missing or summary.get("failed"):
+        bad.append(f"summary missing {missing}, failed "
+                   f"{summary.get('failed')}")
+    spread = {k: (summary[f"{k}_min"], summary[k], summary[f"{k}_max"])
+              for k in summary if f"{k}_min" in summary}
+    bad += [f"{k} {v}" for k, v in spread.items() if not v[0] <= v[1] <= v[2]]
+    runs = summary.get("launches", {})
+    launches = {name: sum(rec[name] for stage in runs.values()
+                          for rec in stage.values())
+                for name in kernels.LAUNCHES}
+    gen = runs.get("generator", {}).get("generator_ms_per_item", {})
+    n = gen.get("calls", 0)
+    if not (n > 0 and gen["warp_linear_f32"] == n
+            and gen["warp_nearest_i32"] == n and gen["lut_gather_f32"] == n
+            and n <= gen["lut_gather_i32"] <= 2 * n):
+        bad.append(f"generator launches {gen}")
+    emit({"phase": "bench", "summary": summary, "contract": contract[-1:],
+          "whole_volume_ms": summary.get("whole_volume_ms"),
+          "serve_forward_ms": figures["serve_forward_ms"],
+          "generator_ms_per_item": summary.get("generator_ms_per_item"),
+          "slice_item_ms": figures["slice_item_ms"],
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"bench phase failed: {bad}")
+    return launches
+
+
+def run_after_slice(dev, power, state, ckpt, lap, slice_item_ms):
     """The phases after the slice, each ended by lap(name); the slice's
-    `state` is served by `serve`, its .pth `ckpt` by `evaluate`. Returns
-    the launches by path."""
+    `state` is served by `serve`, its .pth `ckpt` by `evaluate`; the
+    bench's clocks are printed beside the slice's `slice_item_ms` and the
+    serve phase's forward. Returns the launches by path."""
     with tempfile.TemporaryDirectory() as tmp:
         check_serve_reference(dev, tmp)
         lap("serve_reference")
-        serve_launches = run_serve(flagship_cfg(), state, dev, power, tmp)
+        serve_launches, serve_forward_ms = run_serve(flagship_cfg(), state,
+                                                     dev, power, tmp)
         lap("serve")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3042,12 +3173,18 @@ def run_after_slice(dev, power, state, ckpt, lap):
             lap("multigpu")
     finally:
         shutil.rmtree(held, ignore_errors=True)
+    torch.cuda.empty_cache()
+    run_roofline(dev, power)
+    lap("roofline")
+    bench_launches = run_bench(power, {"slice_item_ms": slice_item_ms,
+                                       "serve_forward_ms": serve_forward_ms})
+    lap("bench")
     return {"serve": serve_launches, "train": train_launches,
             "stream": stream_launches, "pathology": pathology_launches,
             "variants": variants_launches, "twostage": twostage_launches,
             "evaluate": evaluate_launches, "numerics": numerics_launches,
             "multigpu_reference": mgpu_ref_launches,
-            "multigpu": mgpu_launches}
+            "multigpu": mgpu_launches, "bench": bench_launches}
 
 
 def _sub_main(argv):
@@ -3090,7 +3227,7 @@ def main():
     lap("kernel")
     check_slice_reference(cfg, dev)
     lap("slice_reference")
-    slice_launches, state = run_slice(cfg, dev, power)
+    slice_launches, state, slice_item_ms = run_slice(cfg, dev, power)
     lap("slice")
     # the slice's weights, served by the evaluate phase as a .pth
     ckdir = tempfile.mkdtemp()
@@ -3098,7 +3235,7 @@ def main():
         ckpt = os.path.join(ckdir, "slice_l6.pth")
         torch.save({"model": state}, ckpt)
         state = {k: v.cpu() for k, v in state.items()}
-        paths = run_after_slice(dev, power, state, ckpt, lap)
+        paths = run_after_slice(dev, power, state, ckpt, lap, slice_item_ms)
         del state
     finally:
         shutil.rmtree(ckdir)

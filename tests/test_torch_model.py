@@ -57,14 +57,28 @@ def port_model(num_levels, params, dtype):
     return cfg, model.eval()
 
 
+@pytest.fixture(scope="module")
+def fp64_models():
+    """jax_model(num_levels, x, np.float64), built once per num_levels: the
+    params depend on the seed and the layer shapes, not on x's extent, so
+    the even and the odd volume share them."""
+    built = {}
+
+    def get(num_levels, x):
+        if num_levels not in built:
+            built[num_levels] = jax_model(num_levels, x, np.float64)
+        return built[num_levels]
+    return get
+
+
 @pytest.mark.parametrize("num_levels", [5, 6])
 @pytest.mark.parametrize("size", [32, 33])
-def test_joint_forward_matches_jax_fp64(num_levels, size):
+def test_joint_forward_matches_jax_fp64(fp64_models, num_levels, size):
     jax.config.update("jax_enable_x64", True)
     try:
         x = np.random.default_rng(size).standard_normal(
             (2, size, size, size, 1))
-        jcfg, jm, params = jax_model(num_levels, x, np.float64)
+        jcfg, jm, params = fp64_models(num_levels, x)
         want = japply(jax.jit(jm.apply)(params, jnp.asarray(x)), jcfg)
         cfg, model = port_model(num_levels, params, np.float64)
         with torch.no_grad():
