@@ -53,6 +53,7 @@ import copy  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 import statistics  # noqa: E402
 import time  # noqa: E402
 import traceback  # noqa: E402
@@ -124,6 +125,23 @@ FLAGSHIP = {"gen_cfg": "brain_id", "train_cfg": "joint",
             "remat": "save_convs", "grad_accum_samples": 1}
 
 METRIC = "inference_vols_per_sec_per_chip"
+# decimal places of each key, the root bench's `round` (bench.py:91-104,
+# :278-512); the flagship step, which the root bench lacks, takes the
+# 128^3 step's. `<key>_min` and `<key>_max` take their key's places.
+PLACES = {"value": 4, "vs_baseline": 4, "primary_vols_per_sec": 4,
+          "whole_volume_ms": 0, "train_step_ms": 0,
+          "train_step_flagship_ms": 0, "tiled_fp32_ms": 0,
+          "generator_ms_per_item": 1, "generator_pathol_ms_per_item": 1,
+          "primary_compile_s": 1, "train_compile_s": 1,
+          "train_flagship_compile_s": 1, "generator_compile_s": 1,
+          "generator_pathol_compile_s": 1, "tiled_compile_s": 1}
+
+
+def rounded(key: str, v: float):
+    """`v` at the places of `key` (of its base key for `_min`/`_max`), as
+    the root bench rounds it: `round(v)`, an int, at 0 places."""
+    n = PLACES[re.sub(r"_(min|max)$", "", key)]
+    return round(v, n) if n else round(v)
 # the root bench's default when BASELINE.json holds no measured line: the
 # torch reference L6 flagship, whole volume, on an 8-thread CPU
 BASELINE_VOLS_PER_SEC = 0.00086
@@ -201,10 +219,13 @@ class Bench:
         return (time.perf_counter() - t0) * 1e3
 
     def record(self, key, times):
-        """The median of `times` (ms) under `key`, its spread beside it."""
-        self.summary[key] = statistics.median(times)
-        self.summary[f"{key}_min"] = min(times)
-        self.summary[f"{key}_max"] = max(times)
+        """The median of `times` (ms) under `key`, its spread beside it,
+        each at the key's places; returns the median unrounded."""
+        med = statistics.median(times)
+        for k, v in ((key, med), (f"{key}_min", min(times)),
+                     (f"{key}_max", max(times))):
+            self.summary[k] = rounded(k, v)
+        return med
 
     def timed(self, stage, key, fns):
         """Each of `fns` timed in turn with the kernel launches counted
@@ -213,11 +234,10 @@ class Bench:
         times = [self.call_ms(fn) for fn in fns]
         self.summary["launches"].setdefault(stage, {})[key] = {
             "calls": len(times), **kernels.LAUNCHES}
-        self.record(key, times)
-        return times
+        return times, self.record(key, times)
 
     def warm(self, key, fn):
-        self.summary[key] = self.call_ms(fn) / 1e3
+        self.summary[key] = rounded(key, self.call_ms(fn) / 1e3)
 
     # ------------------------------------------------------------ stages
 
@@ -238,17 +258,18 @@ class Bench:
         baseline = baseline_vols_per_sec()
         s = self.shape
         line = json.dumps({
-            "metric": METRIC, "value": vols_per_sec,
+            "metric": METRIC, "value": rounded("value", vols_per_sec),
             "unit": f"volumes/s ({s['vol']}^3 whole-volume single-pass "
                     f"forward, joint 8-task UNet3D f{s['f_maps']} "
                     f"L{s['num_levels']} bf16, random weights; on "
                     f"{self.card}; vs_baseline = ratio to the torch "
                     f"reference L6 flagship whole-volume on an 8-thread "
                     f"CPU, {baseline} vol/s, BASELINE.md)",
-            "vs_baseline": vols_per_sec / baseline})
+            "vs_baseline": rounded("vs_baseline", vols_per_sec / baseline)})
         self.contract = line
         os.write(self.out_fd, (line + "\n").encode())
-        self.summary["vs_baseline"] = vols_per_sec / baseline
+        self.summary["vs_baseline"] = rounded("vs_baseline",
+                                              vols_per_sec / baseline)
 
     def stage_primary(self):
         inf = self.inferencer()
@@ -268,12 +289,12 @@ class Bench:
         if torch.allclose(t1, t2):
             raise AssertionError("a changed input gave the same output")
         del out, t1, t2, vol2
-        times = self.timed("primary", "whole_volume_ms",
-                           [lambda: run(vol)] * self.reps["timed"])
-        ms = self.summary["whole_volume_ms"]
-        self.summary.update(primary_vols_per_sec=1e3 / ms,
-                            primary_vols_per_sec_min=1e3 / max(times),
-                            primary_vols_per_sec_max=1e3 / min(times))
+        times, ms = self.timed("primary", "whole_volume_ms",
+                               [lambda: run(vol)] * self.reps["timed"])
+        for k, v in (("primary_vols_per_sec", 1e3 / ms),
+                     ("primary_vols_per_sec_min", 1e3 / max(times)),
+                     ("primary_vols_per_sec_max", 1e3 / min(times))):
+            self.summary[k] = rounded(k, v)
         self.emit_contract(1e3 / ms)
         log(f"whole volume: {self.summary['whole_volume_ms']:.1f} ms "
             f"(median of {len(times)}) / {self.shape['vol']}^3, bf16")

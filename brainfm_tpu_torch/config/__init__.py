@@ -1,3 +1,5 @@
-from .config import AttrDict, load_config, merge_missing, update_out_dir
+from .config import (AttrDict, load_config, merge_missing, preprocess_cfg,
+                     to_namespace, update_out_dir)
 
-__all__ = ["AttrDict", "load_config", "merge_missing", "update_out_dir"]
+__all__ = ["AttrDict", "load_config", "merge_missing", "preprocess_cfg",
+           "to_namespace", "update_out_dir"]

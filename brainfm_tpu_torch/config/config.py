@@ -11,6 +11,7 @@ import copy
 import os
 import re
 import time
+from types import SimpleNamespace
 
 import yaml
 
@@ -82,6 +83,22 @@ def load_config(cfg_files, cfg_dir: str = "") -> AttrDict:
             path = path + ".yaml"
         recursive_update(merged, load_yaml(path))
     return AttrDict.from_nested(merged)
+
+
+def preprocess_cfg(cfg_files, cfg_dir: str = "") -> AttrDict:
+    """The reference's name for `load_config` (utils/misc.py:378 of the
+    reference)."""
+    return load_config(cfg_files, cfg_dir)
+
+
+def to_namespace(d):
+    """A nested dict, and the lists inside it, as a SimpleNamespace tree,
+    for call sites that read the reference's `args.x.y`."""
+    if isinstance(d, dict):
+        return SimpleNamespace(**{k: to_namespace(v) for k, v in d.items()})
+    if isinstance(d, list):
+        return [to_namespace(v) for v in d]
+    return d
 
 
 def merge_missing(dst: dict, src: dict) -> dict:

@@ -29,6 +29,10 @@ from .heads import TaskHead
 from .params_io import read_state_dict
 from .unet3d import UNet2D, UNet3D, UNet3DSep
 
+# the first N_NEUTRAL_EXTRACEREBRAL labels of LABELS_EXTRACEREBRAL are the
+# neutral (non-lateral) ones (the reference's Trainer/models/__init__.py:30)
+N_NEUTRAL_EXTRACEREBRAL = 20
+
 
 def process_args(cfg):
     """Derive out_channels / output_names / target_names from the task

@@ -17,6 +17,9 @@ optimizer, so a JAX run can be continued by the port.
 
 `load_pth` reads a reference `.pth` / `.pt` state dict straight into the
 port's Joiner: the port's parameter names are the reference's.
+`align_state_dict` is the JAX package's fuzzy aligner
+(models/torch_import.py::align_params) on those names, for files whose
+names or shapes are not the model's.
 """
 
 from __future__ import annotations
@@ -154,3 +157,65 @@ def load_pth(model, path: str):
     state, bare = read_state_dict(path)
     (model.backbone if bare else model).load_state_dict(state, strict=True)
     return model
+
+
+def align_state_dict(target, ckpt, exclude_key: str | None = None,
+                     to_match: dict | None = None):
+    """Align the state dict `ckpt` onto the state dict `target`: the rules
+    of the JAX package's align_params on the reference's names (those of
+    the reference's align_and_update_state_dicts).
+
+    Each model key not containing `exclude_key` takes the longest
+    checkpoint key that equals it or ends it after a '.', directly or
+    after the `to_match` renames (old -> new substrings). One checkpoint
+    key matching two model keys raises ValueError. A shape mismatch at
+    equal rank is skipped (`skipped_shape`, the live value stays); a conv
+    kernel (O, I, kD, kH, kW) fed a 2-D kernel (O, I, kH, kW) gets it in
+    its centre depth frame [:, :, kD // 2] and zeros elsewhere
+    (`inflated`). Values take the target's dtype and device.
+
+    Returns (aligned, report): `aligned` has exactly `target`'s keys;
+    `report` lists `matched` and `inflated` (model key, checkpoint key)
+    pairs, `skipped_shape`, `unmatched_model` and `unmatched_ckpt`."""
+    to_match = to_match or {}
+    model_keys = sorted(k for k in target
+                        if exclude_key is None or exclude_key not in k)
+    ckpt_keys = sorted(ckpt)
+
+    def matches(a: str, b: str) -> bool:
+        return any(a == c or a.endswith("." + c) for c in
+                   [b] + [b.replace(old, new) for old, new in
+                          to_match.items()])
+
+    aligned = dict(target)
+    owner: dict = {}   # checkpoint key -> model key
+    report = {"matched": [], "inflated": [], "skipped_shape": [],
+              "unmatched_model": [], "unmatched_ckpt": []}
+    for mk in model_keys:
+        best = max((ck for ck in ckpt_keys if matches(mk, ck)), key=len,
+                   default=None)
+        if best is None:
+            continue
+        if best in owner:
+            raise ValueError(
+                f"Cannot match one checkpoint key to multiple keys in the "
+                f"model: {best} -> {owner[best]} and {mk}")
+        t, val = target[mk], torch.as_tensor(ckpt[best])
+        shape = tuple(t.shape)
+        if shape == tuple(val.shape):
+            aligned[mk] = val.to(dtype=t.dtype, device=t.device)
+            report["matched"].append((mk, best))
+        elif (len(shape) == val.dim() + 1 and len(shape) >= 3
+              and shape[:2] + shape[3:] == tuple(val.shape)):
+            out = torch.zeros_like(t)
+            out[:, :, shape[2] // 2] = val.to(dtype=t.dtype, device=t.device)
+            aligned[mk] = out
+            report["inflated"].append((mk, best))
+        else:
+            report["skipped_shape"].append((mk, best))
+            continue
+        owner[best] = mk
+    report["unmatched_model"] = [k for k in model_keys
+                                 if k not in set(owner.values())]
+    report["unmatched_ckpt"] = [k for k in ckpt_keys if k not in owner]
+    return aligned, report

@@ -46,11 +46,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvolcodec-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the codec unless its library exists; raise with g++'s
-    output when the build fails."""
+def build(force: bool = False) -> Path:
+    """Compile the codec unless its library exists (or always, with
+    `force`); raise with g++'s output when the build fails."""
     dst = library_path()
-    if dst.exists():
+    if dst.exists() and not force:
         return dst
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = dst.with_suffix(f".tmp{os.getpid()}")
@@ -64,6 +64,27 @@ def build() -> Path:
                            f"{proc.stderr}")
     os.replace(tmp, dst)   # atomic: a concurrent build sees all or none
     return dst
+
+
+def build_native(force: bool = False) -> bool:
+    """Build the codec (again with `force`); False, with g++'s stderr
+    printed, when the build fails. `VolCodec` itself raises instead."""
+    try:
+        build(force)
+        return True
+    except RuntimeError as e:
+        print(e)
+        return False
+
+
+def native_available() -> bool:
+    """Whether the codec's library builds and loads."""
+    try:
+        _load()
+        return True
+    except (RuntimeError, OSError) as e:
+        print(e)
+        return False
 
 
 def _load():

@@ -237,6 +237,32 @@ def load_model_weights(path: str, model):
     return model
 
 
+def load_reference_pth(path: str, target=None, exclude_key: str | None = None,
+                       to_match: dict | None = None) -> dict:
+    """A reference torch checkpoint (`.pth` / `.pt`) as a state dict of
+    the port's names (the reference's): a `"model"` entry unwrapped, a
+    `module.` prefix stripped, a bare backbone's keys under `backbone.`.
+
+    With `target` (an nn.Module or its state dict) the file goes through
+    models/params_io.py::align_state_dict onto it, so partial, renamed and
+    2-D checkpoints load, and the returned state dict has exactly the
+    target's keys; keys containing `exclude_key` keep their live values
+    (the reference's load_checkpoint(..., exclude_key='supervised_seg'),
+    its scripts/train.py:182)."""
+    from ..models.params_io import align_state_dict, read_state_dict
+
+    state, bare = read_state_dict(path)
+    if bare:
+        state = {f"backbone.{k}": v for k, v in state.items()}
+    if target is None:
+        return state
+    if isinstance(target, torch.nn.Module):
+        target = target.state_dict()
+    aligned, _ = align_state_dict(target, state, exclude_key=exclude_key,
+                                  to_match=to_match)
+    return aligned
+
+
 def is_checkpoint_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(str(path), MODEL_FILE))
 

@@ -133,6 +133,23 @@ Phases, one JSON line each:
                no failed stage, K1 and K2 launched per generator item;
                its whole-volume and generator clocks beside the serve
                phase's forward and the slice's item.
+ 23. entry   - brainfm_tpu_torch/entry.py, the driver contract: entry()'s
+               fn on the card (the flagship joint model, every parameter
+               zero, a 160^3 zero volume, bf16) gives T1 and segmentation
+               of the JAX shapes, finite and constant, equal to what the
+               same fn gives on the CPU at 32^3; fn timed (median of
+               ENTRY_TIMED calls after ENTRY_WARM, each between
+               synchronizes) with its peak memory; then
+               dryrun_multichip(1): one NCCL rank in a process of its own
+               (data-parallel, FSDP2 and per-rank synthesis steps), finite
+               losses, the FSDP loss within 1e-5 of the data-parallel one,
+               K1 and K2 launched by its synthesis.
+ 24. profile_train - brainfm_tpu_torch/scripts/profile_train.py at 128^3
+               L6 f_maps 64: each remat mode (off, full, save_convs) timed
+               over 3 steps after one, then each counted (--ledger: FLOPs
+               with the recompute, bytes of every aten operation); `off`
+               may run out of memory (its FAILED line is kept, as the root
+               script keeps it), any other failure fails the phase.
 Then the elapsed seconds per phase, the `kernels` summary line (launches on
 every path), the card's name and power limit, and the result line. Exits
 non-zero, printing no result, when a phase fails or no GPU is present.
@@ -153,6 +170,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import struct
 import subprocess
 import sys
@@ -312,6 +330,15 @@ MULTIGPU_TIMED = 2
 
 # roofline: no delivered rate may pass the data sheet's peak by more
 ROOFLINE_MARGIN = 1.05
+# entry: fn's timed calls; the dry run's limit and the FSDP loss's
+ENTRY_WARM = 2
+ENTRY_TIMED = 5
+ENTRY_CPU_SIZE = (32, 32, 32)   # the smallest crop of the L6 model
+ENTRY_TIMEOUT = 600
+# profile_train: the root script's sweep, and the mode that may run out of
+# memory at 128^3
+PROFILE_TRAIN_ARGS = ("--modes", "off,full,save_convs", "--reps", "3")
+PROFILE_TRAIN_MAY_OOM = "off"
 # bench: the child process's limit, and the summary keys of the root
 # bench.py (its STAGES), which the port's bench must all print
 BENCH_TIMEOUT = 900
@@ -386,12 +413,13 @@ def small_model_cfg():
     return cfg
 
 
-def path_grid(scfg, dev, seed):
-    """Source coordinates of one flagship deformation (160^3 into a 160^3
-    subject of the 192^3 bank)."""
+def path_grid(scfg, dev, seed, extent=160.0):
+    """Source coordinates of one deformation of scfg.size into a subject
+    of `extent` (the flagship's: 160^3 into a 160^3 subject of the 192^3
+    bank)."""
     d = Draws(torch.Generator(dev).manual_seed(seed), dev)
     setup = sample_setup(d.sub("setup"), scfg)
-    shp = torch.tensor([160.0] * 3, device=dev)
+    shp = torch.tensor([float(extent)] * 3, device=dev)
     sfd, A, c2 = random_affine(d.sub("affine"), scfg, shp)
     F_, _ = random_nonlinear_field(d.sub("field"), scfg, setup)
     return [c.contiguous() for c in deform_grid(scfg, shp, A, c2, F_)]
@@ -665,6 +693,43 @@ def kernel_cases(scfg, dev) -> list:
     cases.append(lut_case("lut_gather_f32 K=256 C=4",
                           torch.rand((256, 4), generator=g, device=dev) * 200,
                           BANK))
+
+    # the driver contract's dry run (entry.py, S=2): a 16^3 item from a
+    # 20^3 subject in a 24^3 bank, the same wall and lookups at that size
+    from brainfm_tpu_torch import entry as port_entry
+
+    dcfg = process_args(port_entry.synth_cfg())
+    dscfg = SynthStatic.from_cfg(dcfg)
+    dbank = (24, 24, 24)
+    dgrid = path_grid(dscfg, dev, seed=0, extent=20.0)
+    degrid = with_edges(dgrid, dbank[0])
+    dsrc = torch.randn(dbank + (10,), generator=g, device=dev)
+    dd = torch.randn(10, generator=g, device=dev)
+    cases.append(Case(
+        "warp_linear_f32 C=10 dry run", "warp_linear_f32",
+        lambda: warp_volume(dsrc, degrid, default=dd),
+        lambda: trilinear3d(dsrc, *degrid, dd),
+        grid_sample_yardstick(dsrc, degrid, "bilinear", dd),
+        linear_bytes(dbank, degrid, 10), exact=False))
+    dlabels = torch.randint(0, 56, dbank, generator=g, device=dev,
+                            dtype=torch.int32)
+    dtgrid = with_ties(dgrid)
+    dn = dgrid[0].numel()
+    cases.append(Case(
+        "warp_nearest_i32 dry run", "warp_nearest_i32",
+        lambda: warp_labels(dlabels, dtgrid),
+        lambda: nearest3d(dlabels, *dtgrid),
+        grid_sample_yardstick(dlabels, dtgrid, "nearest"),
+        4 * (touched_source_voxels(dbank, dtgrid, "nearest") + 3 * dn + dn),
+        exact=True))
+    cases.append(lut_case("lut_gather_i32 K=10000 dry run", lut, dbank))
+    cases.append(lut_case("lut_gather_i32 K=56 dry run",
+                          torch.arange(56, dtype=torch.int32,
+                                       device=dev).flip(0),
+                          tuple(dscfg.size)))
+    cases.append(lut_case("lut_gather_f32 K=256 C=4 dry run",
+                          torch.rand((256, 4), generator=g, device=dev) * 200,
+                          dbank))
     return cases
 
 
@@ -689,9 +754,16 @@ NUMERICS_CASES = ("lut_gather_f32 K=256 C=2 intensities",)
 # the bench's generator stage: K1 nearest and K2 i32 at the generator
 # path's shapes (the first cases), K1 linear and K2 f32 at these
 BENCH_CASES = ("warp_linear_f32 C=10 wall", "lut_gather_f32 K=256 C=4")
+# the driver contract's dry run (the entry phase): every kernel at its
+# 16^3-from-24^3 shapes; the first case of a C function stands for it
+ENTRY_CASES = ("warp_linear_f32 C=10 dry run", "warp_nearest_i32 dry run",
+               "lut_gather_i32 K=10000 dry run",
+               "lut_gather_i32 K=56 dry run",
+               "lut_gather_f32 K=256 C=4 dry run")
 # the `kernels` line's key for each path's own cases
 PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
-              "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES}
+              "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES,
+              "entry_case": ENTRY_CASES}
 
 
 def check_kernels(scfg, dev):
@@ -707,7 +779,7 @@ def check_kernels(scfg, dev):
         recs.setdefault(case.fn, rec)
         for key, names in PATH_CASES.items():
             if case.name in names:
-                by_path[key][case.fn] = rec
+                by_path[key].setdefault(case.fn, rec)
     emit({"phase": "kernel", "case": "cold timing floor (no call)",
           "ms_cold": time_ms(lambda: None, cold=True)})
     g = torch.Generator(dev).manual_seed(1)
@@ -3112,6 +3184,131 @@ def run_bench(power, figures):
     return launches
 
 
+def run_entry(dev, power):
+    """entry()'s fn on the card against the CPU, timed, then
+    dryrun_multichip(1) on one NCCL rank. Returns the K1 and K2 launches
+    of the dry run's synthesis."""
+    from brainfm_tpu_torch import entry as port_entry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn, (params, x) = port_entry.entry()
+    x_shape, size = list(x.shape), tuple(x.shape[1:4])
+    n_seg = len(LABELS_EXTRACEREBRAL)
+    want = {"T1": (1, *size, 1), "segmentation": (1, *size, n_seg)}
+    with torch.no_grad():
+        outs = dict(zip(want, fn(params, x)))
+    torch.cuda.synchronize()
+    cpu_fn, (cpu_params, cpu_x) = port_entry.entry(
+        device="cpu", overrides={"generator": {
+            "left_hemis_only": False, "size": list(ENTRY_CPU_SIZE)}})
+    with torch.no_grad():
+        cpu_outs = dict(zip(want, cpu_fn(cpu_params, cpu_x)))
+    del cpu_fn, cpu_params, cpu_x
+    bad, values = [], {}
+    for k, v in outs.items():
+        if tuple(v.shape) != want[k]:
+            bad.append(f"{k} shape {tuple(v.shape)} != {want[k]}")
+        if not bool(torch.isfinite(v).all()):
+            bad.append(f"{k} not finite")
+        lo, hi = float(v.min()), float(v.max())
+        c_lo, c_hi = float(cpu_outs[k].min()), float(cpu_outs[k].max())
+        values[k] = {"gpu": [lo, hi], "cpu": [c_lo, c_hi]}
+        if not lo == hi == c_lo == c_hi:
+            bad.append(f"{k} not the CPU's constant field: {values[k]}")
+    del outs, cpu_outs
+
+    def call():
+        with torch.no_grad():
+            fn(params, x)
+
+    times = []
+    for i in range(ENTRY_WARM + ENTRY_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        if i >= ENTRY_WARM:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fn, params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = port_entry.dryrun_multichip(1, timeout=ENTRY_TIMEOUT)
+    dryrun_s = time.perf_counter() - t0
+    losses = {k: res[k] for k in ("loss_total", "fsdp_loss_total",
+                                  "synth_loss_total")}
+    if not all(math.isfinite(v) for v in losses.values()):
+        bad.append(f"dry run losses {losses}")
+    fsdp_rel = abs(losses["fsdp_loss_total"] - losses["loss_total"]) / abs(
+        losses["loss_total"])
+    if not fsdp_rel <= port_entry.FSDP_RTOL:
+        bad.append(f"FSDP loss {fsdp_rel} from the data-parallel one")
+    launches = {k: sum(r[k] for r in res["launches_by_rank"])
+                for k in kernels.LAUNCHES}
+    if min(launches.values()) < 1:
+        bad.append(f"path missed a kernel: {launches}")
+    emit({"phase": "entry", "model": "joint 8-task UNet3D f64 L6, zero "
+          "parameters", "x": x_shape, "amp": "bf16",
+          "shapes": {k: list(v) for k, v in want.items()},
+          "constant_values": values, "cpu_size": list(ENTRY_CPU_SIZE),
+          "fn_ms": statistics.median(times), "fn_ms_all": times,
+          "peak_mem_gib": peak, "dryrun": {
+              "mesh": res["mesh"], "backend": "nccl", **losses,
+              "fsdp_rel_err": fsdp_rel, "seconds": dryrun_s},
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"entry phase failed: {bad}")
+    return launches
+
+
+def run_profile_train(dev, power):
+    """brainfm_tpu_torch/scripts/profile_train.py's sweep at its defaults
+    (128^3, L6, f_maps 64): each mode timed, then counted. Only
+    PROFILE_TRAIN_MAY_OOM may fail, and only by running out of memory; the
+    counts of the modes that ran must keep their order (FLOPs: full above
+    save_convs, save_convs equal to off; bytes: off, save_convs, full
+    rising)."""
+    from brainfm_tpu_torch.scripts import profile_train as pt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ap = pt.build_parser()
+    recs, lines = {}, []
+    for extra in ((), ("--ledger",)):
+        args = ap.parse_args([*PROFILE_TRAIN_ARGS, *extra])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            recs["ledger" if extra else "timed"] = pt.sweep(
+                args, pt.parse_modes(ap, args.modes), dev)
+        lines += buf.getvalue().splitlines()
+    bad = []
+    for kind, by_mode in recs.items():
+        for mode, rec in by_mode.items():
+            if "failed" in rec and not (
+                    mode == PROFILE_TRAIN_MAY_OOM
+                    and rec["failed"].startswith("OutOfMemoryError")):
+                bad.append(f"{kind} {mode}: {rec['failed']}")
+    led = {m: r for m, r in recs["ledger"].items() if "failed" not in r}
+    if "full" in led and "save_convs" in led:
+        if not led["full"]["flops"] > led["save_convs"]["flops"]:
+            bad.append("full counts no recompute")
+        if not led["full"]["bytes"] > led["save_convs"]["bytes"]:
+            bad.append("full moves no more bytes than save_convs")
+    if "off" in led and "save_convs" in led:
+        if led["off"]["flops"] != led["save_convs"]["flops"] \
+                or not led["off"]["bytes"] < led["save_convs"]["bytes"]:
+            bad.append("off against save_convs")
+    emit({"phase": "profile_train", "args": list(PROFILE_TRAIN_ARGS),
+          "lines": lines, "timed": recs["timed"], "ledger": recs["ledger"],
+          "gpu": power})
+    if bad:
+        raise AssertionError(f"profile_train phase failed: {bad}")
+
+
 def run_after_slice(dev, power, state, ckpt, lap, slice_item_ms):
     """The phases after the slice, each ended by lap(name); the slice's
     `state` is served by `serve`, its .pth `ckpt` by `evaluate`; the
@@ -3179,12 +3376,17 @@ def run_after_slice(dev, power, state, ckpt, lap, slice_item_ms):
     bench_launches = run_bench(power, {"slice_item_ms": slice_item_ms,
                                        "serve_forward_ms": serve_forward_ms})
     lap("bench")
+    entry_launches = run_entry(dev, power)
+    lap("entry")
+    run_profile_train(dev, power)
+    lap("profile_train")
     return {"serve": serve_launches, "train": train_launches,
             "stream": stream_launches, "pathology": pathology_launches,
             "variants": variants_launches, "twostage": twostage_launches,
             "evaluate": evaluate_launches, "numerics": numerics_launches,
             "multigpu_reference": mgpu_ref_launches,
-            "multigpu": mgpu_launches, "bench": bench_launches}
+            "multigpu": mgpu_launches, "bench": bench_launches,
+            "entry": entry_launches}
 
 
 def _sub_main(argv):

@@ -16,6 +16,7 @@ import re
 import subprocess
 import sys
 
+import pytest
 import torch
 
 from brainfm_tpu_torch import bench
@@ -52,10 +53,15 @@ def test_bench_refuses_without_cuda(monkeypatch, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
-def test_bench_smoke_prints_the_contract_and_every_root_key():
+@pytest.fixture(scope="module")
+def smoke():
     # two threads: the suite runs beside other workers
-    out = _bench("--smoke", "--device", "cpu",
-                 env=dict(os.environ, OMP_NUM_THREADS="2"))
+    return _bench("--smoke", "--device", "cpu",
+                  env=dict(os.environ, OMP_NUM_THREADS="2"))
+
+
+def test_bench_smoke_prints_the_contract_and_every_root_key(smoke):
+    out = smoke
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
     assert len(lines) == 2   # after the primary stage, and last
@@ -82,6 +88,62 @@ def test_bench_smoke_prints_the_contract_and_every_root_key():
         assert summary[f"{k}_min"] <= summary[k] <= summary[f"{k}_max"], k
     assert summary["failed"] == [] and summary["device"] == "cpu"
     assert set(summary["launches"]) == set(bench.STAGES)
+
+
+def _root_places():
+    """{key: decimal places} of every `round` the root bench writes: the
+    STAGES keys and the contract line's `value` and `vs_baseline`."""
+    places = {}
+    for node in ast.walk(ast.parse(ROOT_BENCH)):
+        pairs = []
+        if isinstance(node, ast.Assign) and isinstance(
+                node.targets[0], ast.Subscript) and isinstance(
+                node.targets[0].value, ast.Name) and \
+                node.targets[0].value.id == "STAGES":
+            pairs.append((ast.literal_eval(node.targets[0].slice),
+                          node.value))
+        elif isinstance(node, ast.Dict):
+            pairs += [(ast.literal_eval(k), v)
+                      for k, v in zip(node.keys, node.values)
+                      if isinstance(k, ast.Constant)
+                      and k.value in ("value", "vs_baseline")]
+        for key, v in pairs:
+            if isinstance(v, ast.Call) and getattr(v.func, "id", "") == \
+                    "round":
+                places[key] = (ast.literal_eval(v.args[1])
+                               if len(v.args) > 1 else 0)
+    return places
+
+
+def test_bench_keys_carry_the_root_bench_places(smoke):
+    root = _root_places()
+    # every STAGES key but cache_cold, and the contract line's value
+    assert len(root) == 13, root
+    assert {k: bench.PLACES[k] for k in root} == root
+    # the keys the root bench lacks take their sibling's places
+    assert bench.PLACES["train_step_flagship_ms"] == root["train_step_ms"]
+    assert bench.PLACES["train_flagship_compile_s"] == root["train_compile_s"]
+    assert smoke.returncode == 0, smoke.stderr[-3000:]
+    summary = json.loads(smoke.stderr.strip().splitlines()[-1][
+        len("# BENCH SUMMARY "):])
+    contract = json.loads(smoke.stdout.splitlines()[-1])
+    seen = 0
+    for k, v in list(summary.items()) + [("value", contract["value"]),
+                                         ("vs_baseline",
+                                          contract["vs_baseline"])]:
+        base = re.sub(r"_(min|max)$", "", k)
+        if base not in bench.PLACES:
+            continue
+        n = bench.PLACES[base]
+        assert v == bench.rounded(k, v), (k, v)
+        assert isinstance(v, int) if n == 0 else isinstance(v, float), k
+        seen += 1
+    # every key once (vs_baseline in the summary and the contract), and
+    # _min and _max of the 7 timed keys
+    assert seen == len(bench.PLACES) + 1 + 2 * 7
+    assert bench.rounded("whole_volume_ms_max", 540.6) == 541
+    assert bench.rounded("generator_ms_per_item", 40.44) == 40.4
+    assert bench.rounded("vs_baseline", 2.123456) == 2.1235
 
 
 def _root_run():

@@ -84,7 +84,7 @@ def test_kernel_cases_cover_every_kernel(monkeypatch):
         "lut_gather_i32 K=10000", "lut_gather_i32 K=56",
         "lut_gather_f32 K=256 C=8", *chip_smoke.SERVING_CASES,
         *chip_smoke.EVALUATE_CASES, *chip_smoke.NUMERICS_CASES,
-        *chip_smoke.BENCH_CASES]
+        *chip_smoke.BENCH_CASES, *chip_smoke.ENTRY_CASES]
     assert {c.fn for c in cases} == set(chip_smoke.SOURCES)
     # the atlas grid reaches past the atlas at its corners
     ii = chip_smoke.atlas_grid(torch.device("cpu"))[0]
