@@ -28,11 +28,13 @@ import torch
 from ..device import exact_fp32, resolve_device
 from ..models.build import (build_inpaint_model, build_model, postprocess,
                             process_outputs)
-from ..models.params_io import load_pth
+from ..models.params_io import from_jax_params, load_pth
 from ..parallel.mesh import axis_index, axis_size, local_slice
 from ..parallel.spatial import gather_outputs, slab_of, space_scope
-from ..train.checkpoint import (MODEL_FILE, is_checkpoint_dir,
-                                latest_checkpoint, load_model_weights)
+from ..train import orbax_read
+from ..train.checkpoint import (MODEL_FILE, load_model_weights,
+                                resolve_checkpoint)
+from ..train.orbax_read import is_orbax_dir
 from ..ops.warp import warp_volume
 from ..utils.nifti import MRIread, viewVolume
 from .prepare import prepare_image
@@ -50,10 +52,12 @@ class Inferencer:
     exact: TF32 off for this Inferencer's calls (`device.exact_fp32`), the
     counterpart of the JAX package's `highest` matmul precision, which it
     also scopes to one Inferencer rather than setting it process-wide.
-    ckpt_path: a `.pth` / `.pt` state dict (`models.params_io.load_pth`)
-    or a checkpoint directory of `train/checkpoint.py` (its model
-    weights); without one the weights are random, from seed 0, alike on
-    every device.
+    ckpt_path: a `.pth` / `.pt` state dict (`models.params_io.load_pth`),
+    a checkpoint directory of `train/checkpoint.py` or an orbax step
+    directory of the JAX package (its params only, loaded strictly), or a
+    run's ckp/ root holding either (its newest step); a directory with no
+    checkpoint raises FileNotFoundError. Without one the weights are
+    random, from seed 0, alike on every device.
     mesh: a DeviceMesh of parallel.make_mesh: its 'space' axis shards each
     volume's D axis over the ranks (the deep levels that do not split
     run whole), its 'data' axis takes one volume per rank in
@@ -89,15 +93,8 @@ class Inferencer:
     def _load(self, ckpt_path):
         if ckpt_path and str(ckpt_path).endswith((".pth", ".pt")):
             load_pth(self.model, str(ckpt_path))
-        elif ckpt_path and is_checkpoint_dir(ckpt_path):
-            load_model_weights(str(ckpt_path), self.model)
         elif ckpt_path:
-            raise NotImplementedError(
-                f"{ckpt_path}: neither a .pth / .pt state dict nor a "
-                "checkpoint directory of the port (train/checkpoint.py). "
-                "The JAX package's orbax checkpoints are not read here: its "
-                "weights cross as numpy arrays through "
-                "models/params_io.from_jax_params")
+            load_model_weights(resolve_checkpoint(ckpt_path), self.model)
 
     def _as_input(self, x):
         return torch.as_tensor(x).to(self.device, self._in_dtype)
@@ -438,11 +435,13 @@ class TwoStageInferencer(Inferencer):
     input conditioned on it, then the processors (stage 0's sigmoid kept)
     and `postprocess` (the label map through K2).
 
-    pathol_ckpt / task_ckpt: a checkpoint directory of the port's
-    two-stage training (the run's ckp/ root, whose newest step checkpoint
-    is read, or one ckpt_* directory; each stage takes its own part), or
-    each stage's `.pth` / `.pt` state dict; without one a stage's weights
-    are random, from seed 0. `mesh`: as Inferencer's."""
+    pathol_ckpt / task_ckpt: a checkpoint directory of the two-stage
+    training of the port or of the JAX package (an orbax TrainState whose
+    params are {pathol, task}): the run's ckp/ root, whose newest step
+    checkpoint is read, or one ckpt_* directory; each stage takes its own
+    part, and a directory named for both stages is read once. Or each
+    stage's `.pth` / `.pt` state dict; without one a stage's weights are
+    random, from seed 0. `mesh`: as Inferencer's."""
 
     def __init__(self, cfg, pathol_ckpt=None, task_ckpt=None,
                  compute_dtype=torch.float32, exact: bool = True,
@@ -455,6 +454,7 @@ class TwoStageInferencer(Inferencer):
 
     def _load(self, ckpt_path):
         del ckpt_path
+        trees = {}   # one read of a checkpoint that both stages name
         for stage, path in self._ckpts.items():
             if not path:
                 continue
@@ -463,17 +463,22 @@ class TwoStageInferencer(Inferencer):
             if path.endswith((".pth", ".pt")):
                 load_pth(part, path)
                 continue
-            if os.path.isdir(path) and not is_checkpoint_dir(path):
-                path = latest_checkpoint(path) or path
-            if not is_checkpoint_dir(path):
-                raise FileNotFoundError(
-                    f"{path}: no checkpoint of the port's two-stage training "
-                    "and no .pth / .pt file")
-            state = torch.load(os.path.join(path, MODEL_FILE),
-                               map_location=self.device, weights_only=True)
-            part.load_state_dict({k[len(stage) + 1:]: v
-                                  for k, v in state.items()
-                                  if k.startswith(stage + ".")}, strict=True)
+            path = resolve_checkpoint(path)
+            if path not in trees:
+                trees[path] = (orbax_read.restore(path, ("params",))
+                               if is_orbax_dir(path) else
+                               torch.load(os.path.join(path, MODEL_FILE),
+                                          map_location=self.device,
+                                          weights_only=True))
+            if is_orbax_dir(path):
+                # the pair's params are {pathol, task}; a single model's
+                # tree serves as either stage, as in the JAX package
+                tree = trees[path]
+                sd = from_jax_params(tree.get(stage, tree))
+            else:
+                sd = {k[len(stage) + 1:]: v for k, v in trees[path].items()
+                      if k.startswith(stage + ".")}
+            part.load_state_dict(sd, strict=True)
 
     @torch.inference_mode()
     def evaluate_image(self, inputs, feature_only: bool = False,

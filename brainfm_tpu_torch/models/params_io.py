@@ -12,8 +12,9 @@ parses, so the two functions are inverses on the Joiner. Conv kernels go
 (cout,cin,kh,kw)), Dense kernels (in,out) -> (out,in); dtypes are kept.
 
 `from_jax_opt_state` turns the JAX package's optimizer state (optax Adam,
-AdamW, SGD or LARS; numpy leaves) into the state dict of the port's
-optimizer, so a JAX run can be continued by the port.
+AdamW, SGD or LARS; numpy leaves, or the dicts and lists of a restored
+orbax checkpoint) into the state dict of the port's optimizer, so a JAX
+run can be continued by the port.
 
 `load_pth` reads a reference `.pth` / `.pt` state dict straight into the
 port's Joiner: the port's parameter names are the reference's.
@@ -77,34 +78,44 @@ def _torch_key(path):
 
 
 def from_jax_params(params) -> dict:
-    """flax params ({'params': tree} or the tree) -> state dict. A
-    two-stage tree {'pathol': ..., 'task': ...} gives `pathol.*` and
-    `task.*` keys, those of the port's TwoStage."""
+    """flax params ({'params': tree} or the tree; numpy, JAX or CPU
+    tensor leaves) -> state dict. A two-stage tree {'pathol': ...,
+    'task': ...} gives `pathol.*` and `task.*` keys, those of the port's
+    TwoStage."""
     tree = params.get("params", params)
     if set(tree) == set(STAGES):
         return {f"{stage}.{k}": v for stage in STAGES
                 for k, v in from_jax_params(tree[stage]).items()}
     sd = {}
     for path, leaf in _flatten(tree):
-        a = np.asarray(leaf)
+        # train/orbax_read.py gives tensors (bfloat16 too)
+        t = leaf if torch.is_tensor(leaf) else torch.from_numpy(
+            np.array(leaf))
         if path[-1] == "kernel":
-            a = np.transpose(a, _KERNEL_AXES[a.ndim])
-        sd[_torch_key(path)] = torch.from_numpy(np.array(a))  # a writable copy
+            t = t.permute(_KERNEL_AXES[t.dim()])
+        sd[_torch_key(path)] = t.clone(memory_format=torch.contiguous_format)
     return sd
 
 
-def _find(state, fields):
-    """The first namedtuple of an optax state tree (namedtuples, tuples,
-    dicts) that has every field in `fields`."""
-    if set(fields) <= set(getattr(state, "_fields", ())):
+def find_state(state, fields):
+    """The first node of an optax state tree (namedtuples, tuples, lists,
+    dicts) that has every field in `fields`: a namedtuple, or a dict with
+    those keys, as an orbax checkpoint restores a namedtuple
+    (train/orbax_read.py)."""
+    if set(fields) <= set(getattr(state, "_fields", ())) or (
+            isinstance(state, dict) and set(fields) <= set(state)):
         return state
     children = (state.values() if isinstance(state, dict)
-                else state if isinstance(state, tuple) else ())
+                else state if isinstance(state, (tuple, list)) else ())
     for c in children:
-        hit = _find(c, fields)
+        hit = find_state(c, fields)
         if hit is not None:
             return hit
     return None
+
+
+def _field(node, name):
+    return node[name] if isinstance(node, dict) else getattr(node, name)
 
 
 def from_jax_opt_state(opt_state, model, optimizer) -> dict:
@@ -116,13 +127,14 @@ def from_jax_opt_state(opt_state, model, optimizer) -> dict:
     `momentum_buffer`. The param_groups are the optimizer's own."""
     order = {name: i for i, (name, _) in
              enumerate(model.named_parameters())}
-    adam = _find(opt_state, ("count", "mu", "nu"))
-    trace = _find(opt_state, ("trace",))
+    adam = find_state(opt_state, ("count", "mu", "nu"))
+    trace = find_state(opt_state, ("trace",))
     if adam is not None:
-        trees = {"exp_avg": adam.mu, "exp_avg_sq": adam.nu}
-        step = torch.tensor(float(np.asarray(adam.count)))
+        trees = {"exp_avg": _field(adam, "mu"),
+                 "exp_avg_sq": _field(adam, "nu")}
+        step = torch.tensor(float(np.asarray(_field(adam, "count"))))
     elif trace is not None:
-        trees, step = {"momentum_buffer": trace.trace}, None
+        trees, step = {"momentum_buffer": _field(trace, "trace")}, None
     else:
         raise ValueError("no Adam or trace state in the optax state")
     state: dict = {}

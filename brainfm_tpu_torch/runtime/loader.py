@@ -2,11 +2,9 @@
 copy of the JAX package's): parallel NIfTI decode into a fixed-shape
 float32 arena.
 
-The library is built with g++ at first use into brainfm_tpu_torch/_build/
-(git-ignored), keyed by a hash of the source and the flags, for the generic
-x86-64 target (no -march=native: a build may move to another host). A
-failed build raises with the compiler's output; there is no pure-Python
-stand-in for a missing library. The Python reader (utils/nifti.py) decodes
+The library is built with g++ at first use (runtime/native.py). A failed
+build raises with the compiler's output; there is no pure-Python stand-in
+for a missing library. The Python reader (utils/nifti.py) decodes
 only what the codec leaves to it by design: files that are not NIfTI
 (.mgz), NIfTI files with frames beyond 3-D (kept whole, as the Python
 ingest keeps them) and voxel types the codec does not convert.
@@ -15,17 +13,15 @@ ingest keeps them) and voxel types the codec does not convert.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from . import native
+
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "volcodec.cpp"
-BUILD_DIR = _DIR.parent / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LIBS = ("-lz", "-lpthread")
 # decode_one's status codes (volcodec.cpp) that leave a file to the
@@ -41,29 +37,13 @@ _LOCK = threading.Lock()
 
 def library_path() -> Path:
     """Where the library of the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS + LIBS).encode())
-    return BUILD_DIR / f"libvolcodec-{h.hexdigest()[:16]}.so"
+    return native.library_path(SOURCE, CXX_FLAGS + LIBS)
 
 
 def build(force: bool = False) -> Path:
     """Compile the codec unless its library exists (or always, with
     `force`); raise with g++'s output when the build fails."""
-    dst = library_path()
-    if dst.exists() and not force:
-        return dst
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = dst.with_suffix(f".tmp{os.getpid()}")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), *LIBS, "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"volcodec build: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"volcodec build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, dst)   # atomic: a concurrent build sees all or none
-    return dst
+    return native.build(SOURCE, CXX_FLAGS, LIBS, force)
 
 
 def build_native(force: bool = False) -> bool:

@@ -9,9 +9,12 @@ format: one directory per checkpoint holding
 Every function keeps its JAX name and contract: rolling `keep` GC,
 asynchronous saves finalized by `finalize_pending`, the best checkpoint with
 its `_bk` rename, numeric sorting of step directories. Files are read with
-`weights_only=True` (tensors and plain containers, no pickled code). The
-JAX package's orbax directories are not read here; its weights reach the
-port through models/params_io.from_jax_params (and from_jax_opt_state).
+`weights_only=True` (tensors and plain containers, no pickled code).
+
+The loaders also read the JAX package's checkpoints, the orbax step
+directories of brainfm_tpu/train/checkpoint.py (train/orbax_read.py): the
+params through models/params_io.from_jax_params, the optax state through
+from_jax_opt_state, `step` as saved. The port writes only its own format.
 
 Under torch.distributed only rank 0 writes, and the best checkpoint's
 rename is fenced by a barrier. A model sharded with FSDP
@@ -31,7 +34,12 @@ import threading
 
 import torch
 
+from ..models.params_io import from_jax_opt_state, from_jax_params
+from ..parallel.fsdp import (full_tensor, is_sharded, load_full_state,
+                             shard_optimizer_state)
 from ..parallel.mesh import process_count, process_index
+from . import orbax_read
+from .orbax_read import is_orbax_dir
 
 MODEL_FILE = "model.pt"
 TRAIN_FILE = "train.pt"
@@ -53,8 +61,6 @@ def _to_cpu(obj):
     """A copy of a (nested) state dict with every tensor on the CPU (a
     DTensor gathered whole: a collective)."""
     if torch.is_tensor(obj):
-        from ..parallel.fsdp import full_tensor
-
         return full_tensor(obj.detach()).to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
@@ -66,8 +72,6 @@ def _to_cpu(obj):
 def _snapshot(state):
     """(model, train) state dicts on the host. On a rank other than 0 of a
     model that is not sharded nothing is copied: (None, None)."""
-    from ..parallel.fsdp import is_sharded
-
     if process_index() != 0 and not is_sharded(state.model):
         return None, None
     return (_to_cpu(state.model.state_dict()),
@@ -195,10 +199,24 @@ def read_extra(path: str) -> dict:
 
 
 def latest_checkpoint(ckpt_dir: str):
-    """The newest step checkpoint directory, or None."""
+    """The newest step checkpoint directory (the port's or an orbax one),
+    or None."""
     finalize_pending()   # an in-flight save exists only as a tmp dir
     paths = _step_dirs(ckpt_dir)
     return paths[-1] if paths else None
+
+
+def resolve_checkpoint(path: str) -> str:
+    """The checkpoint directory that `path` names: a step directory of
+    either format, or a run's ckp/ root (its newest step). Raises
+    FileNotFoundError when there is none (as the JAX Inferencer does)."""
+    path = str(path)
+    if not (is_checkpoint_dir(path) or is_orbax_dir(path)) \
+            and os.path.isdir(path):
+        path = latest_checkpoint(path) or path
+    if not (is_checkpoint_dir(path) or is_orbax_dir(path)):
+        raise FileNotFoundError(f"no checkpoint found under {path}")
+    return path
 
 
 def load_checkpoint(path: str, state):
@@ -206,34 +224,43 @@ def load_checkpoint(path: str, state):
     optimizer built like the saved ones) and return it. The weights load
     onto the model's device; the optimizer state goes through
     `load_state_dict`, which places it as the optimizer keeps it (moments
-    beside their parameters, step counts on the CPU)."""
+    beside their parameters, step counts on the CPU). An orbax directory
+    of the JAX package gives its params, optax state and `step`."""
     from .step import TrainState
 
-    from ..parallel.fsdp import is_sharded, shard_optimizer_state
-
-    load_model_weights(path, state.model)
-    train_sd = torch.load(os.path.join(path, TRAIN_FILE), map_location="cpu",
-                          weights_only=True)
-    opt_sd = train_sd["optimizer"]
+    if is_orbax_dir(path):
+        tree = orbax_read.restore(path)
+        _load_weights(state.model, from_jax_params(tree["params"]))
+        opt_sd = from_jax_opt_state(tree["opt_state"], state.model,
+                                    state.optimizer)
+        step = int(tree["step"])
+    else:
+        load_model_weights(path, state.model)
+        train_sd = torch.load(os.path.join(path, TRAIN_FILE),
+                              map_location="cpu", weights_only=True)
+        opt_sd, step = train_sd["optimizer"], int(train_sd["step"])
     if is_sharded(state.model):
         opt_sd = shard_optimizer_state(opt_sd, state.optimizer)
     state.optimizer.load_state_dict(opt_sd)
-    return TrainState(state.model, state.optimizer, int(train_sd["step"]))
+    return TrainState(state.model, state.optimizer, step)
 
 
 def load_model_weights(path: str, model):
     """Load only the model weights of a checkpoint directory into `model`
-    (strict; a sharded model keeps its shards). Returns the model."""
-    from ..parallel.fsdp import is_sharded, load_full_state
+    (strict; a sharded model keeps its shards). Of an orbax directory only
+    the params are read, never the optimizer state. Returns the model."""
+    if is_orbax_dir(path):
+        return _load_weights(model, from_jax_params(
+            orbax_read.restore(path, ("params",))))
+    dev = "cpu" if is_sharded(model) else next(model.parameters()).device
+    return _load_weights(model, torch.load(
+        os.path.join(path, MODEL_FILE), map_location=dev, weights_only=True))
 
+
+def _load_weights(model, state_dict):
     if is_sharded(model):
-        return load_full_state(model, torch.load(
-            os.path.join(path, MODEL_FILE), map_location="cpu",
-            weights_only=True))
-    dev = next(model.parameters()).device
-    model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE),
-                                     map_location=dev, weights_only=True),
-                          strict=True)
+        return load_full_state(model, state_dict)
+    model.load_state_dict(state_dict, strict=True)
     return model
 
 
@@ -264,6 +291,7 @@ def load_reference_pth(path: str, target=None, exclude_key: str | None = None,
 
 
 def is_checkpoint_dir(path: str) -> bool:
+    """Whether `path` is a checkpoint directory of the port's format."""
     return os.path.isfile(os.path.join(str(path), MODEL_FILE))
 
 

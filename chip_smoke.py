@@ -95,14 +95,24 @@ Phases, one JSON line each:
                out_T1, which must not be 0); stage times per volume and
                setup, scoring time per metric, peak memory, launch counts
                of the serving and of the scoring.
- 18. numerics_reference - the interpol family (grid_pull, grid_push,
+ 18. orbax   - the JAX package's orbax checkpoints committed as fixtures
+               (tests/fixtures/torch_orbax, JAX TrainStates): the small
+               joint model and the two-stage pair (f_maps 8, 3 levels)
+               served on the card from their ckp/ roots within MODEL_TOL
+               of the JAX inferencers' outputs (labels ORBAX_LABEL_AGREE),
+               the small state through load_checkpoint bitwise and one
+               train step, the decoder's MB/s on its chunks; the flagship
+               zero state loaded strictly into the flagship Inferencer,
+               one 220^3 volume served in bf16 (K2 in postprocess), the
+               params-only and full-state reads timed.
+ 19. numerics_reference - the interpol family (grid_pull, grid_push,
                grid_grad at 64^3, orders 1 and 3, bounds zero and dct2;
                resize_spline, restrict_spline), synth_intensities (K2 f32
                against its plain version, with injected noise) and
                odeint_adjoint (rk4 values and gradients), GPU against CPU
                at fp64; then device times of grid_pull and grid_push at
                160^3 and synth_intensities at 192^3.
- 19. multigpu_reference - MGPU_WORLD ranks, each a process of this script
+ 20. multigpu_reference - MGPU_WORLD ranks, each a process of this script
                on the one card (cuda:0), in a gloo process group (NCCL
                refuses two ranks on one device; the line names the
                backend): the L6 f_maps-16 joint model's fp64 step on
@@ -116,24 +126,24 @@ Phases, one JSON line each:
                alone and that rank's noise floor), then a
                MGPU_EXACT_WIN head at fp64 against one rank alone
                (MODEL_TOL, SEG_AGREE).
- 20. multigpu - the training CLI with the flagship configs on the stream
+ 21. multigpu - the training CLI with the flagship configs on the stream
                phase's data root, launched as torchrun launches one rank
                (RANK=0 WORLD_SIZE=1) with --mesh 1 --fsdp on NCCL:
                MULTIGPU_WARM iterations, then MULTIGPU_TIMED timed ones
                (per-rank item, step), peak memory and launches beside the
                stream phase's figures.
- 21. roofline - brainfm_tpu_torch/scripts/roofline.py: the card's delivered
+ 22. roofline - brainfm_tpu_torch/scripts/roofline.py: the card's delivered
                bf16 matmul and conv3d rates, elementwise and GroupNorm +
                LeakyReLU bytes/s at 220^3 x 64, and the FLOP counts of the
                220^3 forward and the bench's train steps; a rate above 105 %
                of the data sheet's peak fails.
- 22. bench   - python -m brainfm_tpu_torch.bench at full size in a child
+ 23. bench   - python -m brainfm_tpu_torch.bench at full size in a child
                process: contract lines only on its stdout, every key of
                the root bench's summary, min <= median <= max for each,
                no failed stage, K1 and K2 launched per generator item;
                its whole-volume and generator clocks beside the serve
                phase's forward and the slice's item.
- 23. entry   - brainfm_tpu_torch/entry.py, the driver contract: entry()'s
+ 24. entry   - brainfm_tpu_torch/entry.py, the driver contract: entry()'s
                fn on the card (the flagship joint model, every parameter
                zero, a 160^3 zero volume, bf16) gives T1 and segmentation
                of the JAX shapes, finite and constant, equal to what the
@@ -144,7 +154,7 @@ Phases, one JSON line each:
                (data-parallel, FSDP2 and per-rank synthesis steps), finite
                losses, the FSDP loss within 1e-5 of the data-parallel one,
                K1 and K2 launched by its synthesis.
- 24. profile_train - brainfm_tpu_torch/scripts/profile_train.py at 128^3
+ 25. profile_train - brainfm_tpu_torch/scripts/profile_train.py at 128^3
                L6 f_maps 64: each remat mode (off, full, save_convs) timed
                over 3 steps after one, then each counted (--ledger: FLOPs
                with the recompute, bytes of every aten operation); `off`
@@ -339,6 +349,20 @@ ENTRY_TIMEOUT = 600
 # memory at 128^3
 PROFILE_TRAIN_ARGS = ("--modes", "off,full,save_convs", "--reps", "3")
 PROFILE_TRAIN_MAY_OOM = "off"
+# orbax: the JAX package's checkpoints committed as fixtures (written by
+# tests/_torch_orbax_fixtures.py): the small joint model and the two-stage
+# pair at f_maps 8, 3 levels, unit_feat off, served on a 32^3 input from
+# default_rng(0); the flagship architecture with zero weights and moments
+ORBAX_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_orbax")
+ORBAX_SIZE = (32, 32, 32)
+ORBAX_READS = 5
+# the decoder's timed work (decoder_rates): a batch of fixture (a)'s chunks
+# repeated to this many decoded bytes, and its largest chunk to this many
+DECODE_BATCH_BYTES = 256 << 20
+DECODE_CHUNK_BYTES = 64 << 20
+# fp32 softmaxes of a random model on a noise input that differ in the last
+# bits flip near-tied argmaxes (the serving tests' LABEL_AGREE_F32)
+ORBAX_LABEL_AGREE = 0.999
 # bench: the child process's limit, and the summary keys of the root
 # bench.py (its STAGES), which the port's bench must all print
 BENCH_TIMEOUT = 900
@@ -3309,6 +3333,244 @@ def run_profile_train(dev, power):
         raise AssertionError(f"profile_train phase failed: {bad}")
 
 
+def orbax_cfg(name):
+    """The configs of the committed orbax fixtures: "small" (joint.yaml
+    over brain_id) and "twostage" (twostage.yaml with its generator) at
+    f_maps 8, 3 levels, 32^3, unit_feat off, no autocast; "flagship" the
+    flagship's."""
+    if name == "flagship":
+        return flagship_cfg()
+    cfg = (flagship_cfg() if name == "small"
+           else train_script.train_config("twostage", "twostage"))
+    cfg.f_maps, cfg.num_levels, cfg.task_f_maps = 8, 3, [8]
+    cfg.generator.size = list(ORBAX_SIZE)
+    cfg.amp, cfg.unit_feat = False, False
+    return cfg
+
+
+def orbax_inferencers(dev, flagship_dtype=torch.bfloat16):
+    """Each committed orbax fixture served by its inferencer on `dev`,
+    loaded strictly (every key must map): {"small", "twostage",
+    "flagship"} -> (inferencer, seconds to build and load)."""
+    out = {}
+    for name in ("small", "twostage", "flagship"):
+        path = os.path.join(ORBAX_DIR, name)
+        t0 = time.perf_counter()
+        if name == "twostage":
+            inf = TwoStageInferencer(orbax_cfg(name), pathol_ckpt=path,
+                                     task_ckpt=path, device=dev)
+        else:
+            inf = Inferencer(orbax_cfg(name), ckpt_path=path, device=dev,
+                             compute_dtype=(flagship_dtype if name ==
+                                            "flagship" else torch.float32))
+        out[name] = (inf, time.perf_counter() - t0)
+    return out
+
+
+def _orbax_compare(out, name):
+    """Relative errors of the served outputs at the fixture's sampled
+    voxels, and the label maps' agreement."""
+    ref = np.load(os.path.join(ORBAX_DIR, f"{name}_outputs.npz"))
+    idx = torch.from_numpy(ref["voxels"])
+    rel = {}
+    for k in ref.files:
+        if k in ("voxels", "label"):
+            continue
+        got = out[k].reshape(-1, out[k].shape[-1]).cpu()[idx]
+        rel[k] = _rel_err(got, torch.from_numpy(ref[k]))
+    agree = float((out["label"].cpu() == torch.from_numpy(ref["label"]))
+                  .double().mean())
+    missing = sorted(set(ref.files) - {"voxels"} - set(out))
+    return rel, agree, missing
+
+
+def run_orbax(dev, power):
+    """The JAX package's orbax checkpoints (ORBAX_DIR), read by the port:
+    (a) the small fixture served on the card against the JAX Inferencer's
+    outputs, its full state through load_checkpoint held bitwise to the
+    decoded arrays, one train step; the decoder's rate on its chunks; (b)
+    the two-stage fixture served; (c) the flagship zero state loaded
+    strictly into the flagship Inferencer, one 220^3 volume served in
+    bf16 (K2 in postprocess), the params-only and the full-state reads
+    timed. Returns the launches of the serving."""
+    from brainfm_tpu_torch.models.params_io import (find_state,
+                                                    from_jax_params)
+    from brainfm_tpu_torch.runtime import zstd
+    from brainfm_tpu_torch.train import orbax_read
+    from brainfm_tpu_torch.train.checkpoint import resolve_checkpoint
+
+    bad = []
+    # each fixture is a run's ckp/ root holding one step directory
+    paths = {n: resolve_checkpoint(os.path.join(ORBAX_DIR, n))
+             for n in ("small", "flagship")}
+    # fixture (a)'s read; the chunks that the reader hands the decoder
+    real = zstd.decode_batch
+    batch = []
+
+    def captured(frames, sizes):
+        batch[:] = [(frames, sizes)]
+        return real(frames, sizes)
+
+    reads = []
+    try:
+        orbax_read.zstd.decode_batch = captured
+        for _ in range(ORBAX_READS):
+            t0 = time.perf_counter()
+            tree = orbax_read.restore(paths["small"])
+            reads.append(time.perf_counter() - t0)
+    finally:
+        orbax_read.zstd.decode_batch = real
+    frames, sizes = batch[0]
+    small_bytes = sum(sizes)
+    decoder = decoder_rates(frames, sizes)
+
+    x = np.random.default_rng(0).random(ORBAX_SIZE).astype(np.float32)
+    kernels.reset_launches()
+    infs = orbax_inferencers(dev)
+    served = {}
+    for name in ("small", "twostage"):
+        inf, load_s = infs.pop(name)
+        out, ms = _synced_ms(lambda: inf.evaluate_image(x, keep_feat=False))
+        rel, agree, missing = _orbax_compare(out, name)
+        served[name] = {"load_s": load_s, "serve_ms": ms, "rel_err": rel,
+                        "label_agree": agree}
+        bad += [f"{name}: {k} {v} > {MODEL_TOL}" for k, v in rel.items()
+                if not v <= MODEL_TOL]
+        if missing:
+            bad.append(f"{name}: outputs {missing} not served")
+        if agree < ORBAX_LABEL_AGREE:
+            bad.append(f"{name}: labels agree on {agree}")
+        del inf, out
+    inf, flag_load_s = infs.pop("flagship")
+    vol = procedural_head(SERVE_WIN, (1.0, 1.0, 1.0), 0, dev)
+    out, flag_ms = _synced_ms(lambda: inf.evaluate_image(vol,
+                                                         keep_feat=False))
+    flag_out = {k: list(v.shape) for k, v in out.items()}
+    if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()):
+        bad.append("flagship: outputs not finite")
+    launches = dict(kernels.LAUNCHES)
+    if launches["lut_gather_i32"] < 1:
+        bad.append(f"path missed a kernel: {launches}")
+    del inf, out, vol
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a)'s full state through load_checkpoint, bitwise, and one step
+    cfg, model = build_model(orbax_cfg("small"), device=dev)
+    state = load_checkpoint(paths["small"], TrainState(
+        model, build_optimizer(cfg, model.parameters()), 0))
+    want = {f"param.{k}": v for k, v in
+            from_jax_params(tree["params"]).items()}
+    adam = find_state(tree["opt_state"], ("count", "mu", "nu"))
+    order = [n for n, _ in model.named_parameters()]
+    for key, moment in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        sd = from_jax_params(adam[moment])
+        want |= {f"opt.{i}.{key}": sd[n] for i, n in enumerate(order)}
+    got = {k: v for k, v in _state_tensors(state).items()
+           if not k.endswith(".step")}
+    changed = _bitwise_diff({k: v.cpu() for k, v in got.items()}, want)
+    steps = {int(v) for k, v in _state_tensors(state).items()
+             if k.endswith(".step")}
+    if changed:
+        bad.append(f"load_checkpoint: {len(changed)} tensors differ, "
+                   f"{changed[:3]}")
+    if state.step != int(tree["step"]) or steps != {int(adam["count"])}:
+        bad.append(f"load_checkpoint: step {state.step}, Adam steps "
+                   f"{steps}; saved {int(tree['step'])}, "
+                   f"{int(adam['count'])}")
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    step = make_train_step(state.model, cfg, weight_dict, loss_fn,
+                           state.optimizer)
+    state, metrics = step(state, _to_dev(ref_train_batch(cfg), dev),
+                          cfg.lr, 0.0)
+    loss = float(metrics["loss_total"])
+    if not math.isfinite(loss) or state.step != int(tree["step"]) + 1:
+        bad.append(f"train step: loss {loss}, step {state.step}")
+    del state, model, step, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the flagship reads: params only, then the full state
+    t0 = time.perf_counter()
+    params = orbax_read.restore(paths["flagship"], ("params",))
+    params_s = time.perf_counter() - t0
+    params_bytes = sum(v.numel() * v.element_size()
+                       for _, v in _leaves(params))
+    del params
+    cfg, model = build_model(orbax_cfg("flagship"), device=dev)
+    opt = build_optimizer(cfg, model.parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = load_checkpoint(paths["flagship"], TrainState(model, opt, 0))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_bytes = sum(v.numel() * v.element_size()
+                     for v in _state_tensors(state).values())
+    del state, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "orbax", "fixtures": ORBAX_DIR, "size": list(ORBAX_SIZE),
+          "small": {"bytes_decoded": small_bytes,
+                    "read_s": statistics.median(reads), "read_s_all": reads,
+                    "decoder": decoder,
+                    **served["small"], "train_step_loss": loss,
+                    "load_checkpoint_bitwise": not changed},
+          "twostage": served["twostage"],
+          "flagship": {"load_s": flag_load_s, "serve_ms": flag_ms,
+                       "outputs": flag_out, "window": list(SERVE_WIN),
+                       "params_bytes": params_bytes,
+                       "params_read_s": params_s,
+                       "params_mb_s": params_bytes / params_s / 1e6,
+                       "full_state_bytes": full_bytes,
+                       "load_checkpoint_s": full_s},
+          "model_tol": MODEL_TOL, "label_agree_min": ORBAX_LABEL_AGREE,
+          "launches": launches, "gpu": power})
+    if bad:
+        raise AssertionError(f"orbax phase failed: {bad}")
+    return launches
+
+
+def decoder_rates(frames, sizes):
+    """The zstd decoder's MB/s (decoded bytes) on fixture (a)'s chunks:
+    the batch repeated to DECODE_BATCH_BYTES, so that the pool's thread
+    start-up is small beside the work (median of ORBAX_READS), and its
+    largest chunk decoded alone on one thread, repeated to
+    DECODE_CHUNK_BYTES."""
+    from brainfm_tpu_torch.runtime import zstd
+
+    reps = -(-DECODE_BATCH_BYTES // sum(sizes))
+    times = []
+    for _ in range(ORBAX_READS):
+        t0 = time.perf_counter()
+        zstd.decode_batch(frames * reps, sizes * reps)
+        times.append(time.perf_counter() - t0)
+    batch_s = statistics.median(times)
+    big = max(range(len(sizes)), key=sizes.__getitem__)
+    n = -(-DECODE_CHUNK_BYTES // sizes[big])
+    t0 = time.perf_counter()
+    for _ in range(n):
+        zstd.decompress(frames[big], sizes[big])
+    chunk_s = time.perf_counter() - t0
+    total = sum(sizes) * reps
+    return {"batch_bytes": total, "batch_frames": len(sizes) * reps,
+            "threads": zstd.THREADS, "batch_s": batch_s,
+            "batch_mb_s": total / batch_s / 1e6,
+            "chunk_bytes": sizes[big], "chunk_reps": n,
+            "chunk_mb_s": sizes[big] * n / chunk_s / 1e6}
+
+
+def _leaves(tree, prefix=()):
+    """(path, tensor) of every tensor of nested dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
+    elif torch.is_tensor(tree):
+        yield prefix, tree
+
+
 def run_after_slice(dev, power, state, ckpt, lap, slice_item_ms):
     """The phases after the slice, each ended by lap(name); the slice's
     `state` is served by `serve`, its .pth `ckpt` by `evaluate`; the
@@ -3358,6 +3620,9 @@ def run_after_slice(dev, power, state, ckpt, lap, slice_item_ms):
         evaluate_launches = run_evaluate(dev, power, tmp, ckpt)
         lap("evaluate")
     torch.cuda.empty_cache()
+    orbax_launches = run_orbax(dev, power)
+    lap("orbax")
+    torch.cuda.empty_cache()
     numerics_launches = run_numerics(dev, power)
     lap("numerics_reference")
     torch.cuda.empty_cache()
@@ -3383,7 +3648,8 @@ def run_after_slice(dev, power, state, ckpt, lap, slice_item_ms):
     return {"serve": serve_launches, "train": train_launches,
             "stream": stream_launches, "pathology": pathology_launches,
             "variants": variants_launches, "twostage": twostage_launches,
-            "evaluate": evaluate_launches, "numerics": numerics_launches,
+            "evaluate": evaluate_launches, "orbax": orbax_launches,
+            "numerics": numerics_launches,
             "multigpu_reference": mgpu_ref_launches,
             "multigpu": mgpu_launches, "bench": bench_launches,
             "entry": entry_launches}

@@ -431,6 +431,27 @@ def rank_fsdp(rank, world, tmp):
     return out
 
 
+def rank_fsdp_orbax(rank, world, tmp):
+    """data=2: the JAX package's orbax checkpoint at tmp/jax/ckpt_000001
+    (written by the test) loaded by load_checkpoint into an FSDP-sharded
+    model and its AdamW optimizer; the gathered params, optimizer state
+    and step."""
+    from brainfm_tpu_torch.parallel import make_mesh
+    from brainfm_tpu_torch.parallel.fsdp import shard_state
+    from brainfm_tpu_torch.train import checkpoint as ckpt
+    from brainfm_tpu_torch.train.step import TrainState, build_optimizer
+
+    cfg, model = _small_model(seed=9)
+    cfg.optimizer = "adamw"
+    shard_state(model, make_mesh(world, 1))
+    st = ckpt.load_checkpoint(
+        os.path.join(tmp, "jax", "ckpt_000001"),
+        TrainState(model, build_optimizer(cfg, model.parameters()), 0))
+    return {"params": _full_state(model), "step": st.step,
+            "opt": {k: {kk: _full(vv) for kk, vv in v.items()}
+                    for k, v in st.optimizer.state_dict()["state"].items()}}
+
+
 def _full(v):
     from brainfm_tpu_torch.parallel.fsdp import full_tensor
 

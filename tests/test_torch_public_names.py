@@ -17,7 +17,7 @@ import brainfm_tpu.models.build as jax_build
 from brainfm_tpu_torch import config as port_config
 from brainfm_tpu_torch import runtime as port_runtime
 from brainfm_tpu_torch.models import build as port_build
-from brainfm_tpu_torch.runtime import loader
+from brainfm_tpu_torch.runtime import loader, native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = os.path.join(ROOT, "cfgs")
@@ -151,15 +151,15 @@ def test_build_native_and_native_available():
 
 @needs_gxx
 def test_build_native_force_rebuilds(tmp_path, monkeypatch):
-    monkeypatch.setattr(loader, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     calls = []
-    real = loader.subprocess.run
+    real = native.subprocess.run
 
     def run(cmd, *a, **k):
         calls.append(cmd[0])
         return real(cmd, *a, **k)
 
-    monkeypatch.setattr(loader.subprocess, "run", run)
+    monkeypatch.setattr(native.subprocess, "run", run)
     assert loader.build_native() is True
     lib = loader.library_path()
     assert lib.parent == tmp_path and lib.exists()
@@ -176,7 +176,7 @@ def test_build_native_fails_on_a_source_that_does_not_compile(
     bad = tmp_path / "volcodec.cpp"
     bad.write_text("this is not C++;\n")
     monkeypatch.setattr(loader, "SOURCE", bad)
-    monkeypatch.setattr(loader, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     assert loader.build_native() is False
     assert "volcodec build" in capsys.readouterr().out
     assert not loader.library_path().exists()
@@ -188,12 +188,12 @@ def test_build_native_fails_on_a_source_that_does_not_compile(
 
 def test_build_native_fails_without_a_compiler(tmp_path, monkeypatch,
                                                capsys):
-    monkeypatch.setattr(loader, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
 
     def missing(cmd, *a, **k):
         raise FileNotFoundError(2, "No such file or directory", cmd[0])
 
-    monkeypatch.setattr(loader.subprocess, "run", missing)
+    monkeypatch.setattr(native.subprocess, "run", missing)
     assert loader.build_native() is False
     assert "volcodec build" in capsys.readouterr().out
 

@@ -18,6 +18,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
 from brainfm_tpu.config import AttrDict as JAttrDict
 from brainfm_tpu.infer import api as japi
@@ -25,6 +26,8 @@ from brainfm_tpu.infer import prepare as jprep
 from brainfm_tpu.infer import tiles as jtiles
 from brainfm_tpu.models import build as jbuild
 from brainfm_tpu.ops import resize as jresize
+from brainfm_tpu.train import step as jstep
+from brainfm_tpu.train.checkpoint import save_checkpoint as jsave
 from brainfm_tpu.utils import nifti as jnifti
 from brainfm_tpu.utils import orientation as jorient
 from brainfm_tpu_torch.config import AttrDict
@@ -582,9 +585,22 @@ def test_pth_checkpoint_served_by_both(tmp_path, pair, wrap):
         torch.save({"model": {"head.extra.weight": torch.zeros(1), **sd}},
                    bad)
         load_pth(t.model, bad)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    # a directory with no checkpoint raises as the JAX Inferencer does; an
+    # orbax step directory of the JAX package (its params fp32, as the
+    # .pth above) serves the same outputs
+    with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         api.Inferencer(AttrDict.from_nested(cfg_dict()),
                        ckpt_path=str(tmp_path), device="cpu")
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32), jinf.params)
+    jsave(str(tmp_path / "ckp"), 3, jstep.TrainState(
+        params, optax.sgd(0.1).init(params), np.asarray(3, np.int32)))
+    t = api.Inferencer(AttrDict.from_nested(cfg_dict()),
+                       ckpt_path=str(tmp_path / "ckp"),
+                       compute_dtype=torch.float64, device="cpu")
+    got = t.evaluate_image(vol, keep_feat=False)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], atol=F64_ATOL,
+                                   err_msg=k)
 
 
 def test_bf16_inferencer_runs_on_cpu():

@@ -120,3 +120,24 @@ def test_variant_configs_and_memory_settings(name):
     assert (cfg.backbone or "unet3d") == {"sep": "unet3d_sep",
                                           "twostage": "unet3d+unet3d"}.get(
         name, "unet3d")
+
+
+def test_orbax_fixtures_load_strictly_on_the_cpu():
+    """chip_smoke's orbax phase reading its fixtures on the CPU: each
+    committed checkpoint (tests/fixtures/torch_orbax) exists, parses and
+    loads strictly into its inferencer's model; the small model and the
+    pair serve the fixture's input within the phase's bounds of the JAX
+    outputs, and the flagship's every weight is the saved zero."""
+    infs = chip_smoke.orbax_inferencers("cpu", flagship_dtype=torch.float32)
+    assert set(infs) == {"small", "twostage", "flagship"}
+    x = np.random.default_rng(0).random(chip_smoke.ORBAX_SIZE).astype(
+        np.float32)
+    for name in ("small", "twostage"):
+        out = infs[name][0].evaluate_image(x, keep_feat=False)
+        rel, agree, missing = chip_smoke._orbax_compare(out, name)
+        assert not missing and rel, name
+        assert max(rel.values()) <= chip_smoke.MODEL_TOL, (name, rel)
+        assert agree >= chip_smoke.ORBAX_LABEL_AGREE, (name, agree)
+    flagship = infs["flagship"][0].model
+    assert sum(p.numel() for p in flagship.parameters()) == 264_067_558
+    assert all(not p.any() for p in flagship.parameters())

@@ -29,7 +29,7 @@ from brainfm_tpu.synth import engine as jengine
 from brainfm_tpu_torch.config import AttrDict
 from brainfm_tpu_torch.models import build_model
 from brainfm_tpu_torch.models.criterion import make_criterion
-from brainfm_tpu_torch.runtime import loader
+from brainfm_tpu_torch.runtime import loader, native
 from brainfm_tpu_torch.synth import datasets, engine
 from brainfm_tpu_torch.synth.sampler import choose_modality
 from brainfm_tpu_torch.train import loop
@@ -144,7 +144,7 @@ def test_codec_build_failure_raises_with_compiler_output(tmp_path,
     src = tmp_path / "volcodec.cpp"
     src.write_text("this is not C++\n")
     monkeypatch.setattr(loader, "SOURCE", src)
-    monkeypatch.setattr(loader, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="volcodec build failed"):
         loader.build()
 
