@@ -1,0 +1,390 @@
+// K3-K5: GroupNorm's heavy passes in sums-and-composite-affine form,
+// written for Hopper (sm_90a).
+//
+// Replace the full-size work of brainfm_tpu/models/unet3d.py's
+// jax.custom_vjp GroupNorms (_fgn_stats / _fused_groupnorm :289-388,
+// _pair_groupnorm :184-286); the (B, C) -> (B, G) algebra between the
+// passes stays in PyTorch (brainfm_tpu_torch/ops/groupnorm.py):
+//  - K3 chan_sums:    per (sample, channel) row, sum(u) and sum(u * v) over
+//                     the spatial extent. Forward u = v = x gives s1 and
+//                     s2; backward u = dy, v = x gives s_dy and s_dyx.
+//  - K4 chan_affine:  y = x * a[row] + b[row], computed in the statistics
+//                     type and stored in x's type (the forward apply).
+//  - K5 chan_affine3: dx = dy * P[row] + x * Q[row] + R[row] with P, Q, R
+//                     in x's type, each operation rounded to x's type, as
+//                     _fgn_bwd / _pgn_bwd combine in the activation dtype.
+//
+// Semantics are exactly ops/groupnorm.py's plain versions
+// (chan_sums_plain, chan_affine_plain, chan_affine3_plain). K4 and K5 use
+// the same operations in the same order without multiply-add contraction
+// (__fmul_rn, __fadd_rn), so they are bitwise equal to them; K3 sums in
+// another order, to within the statistics type's rounding.
+//
+// Layout: (rows, S) with rows = N * C and S the spatial extent, each row
+// contiguous (NCDHW or NCHW, the layout the model runs in); the wrapper
+// refuses any other strides. Types: bf16, fp32 and fp64 inputs, one
+// template each; sums and the affine in fp32 (fp64 for fp64 inputs).
+//
+// Bound on the H100: bytes. K3 reads its inputs once and writes 2 numbers
+// a row; K4 reads x and writes y; K5 reads dy and x and writes dx. The
+// coefficients are a few KB.
+//
+// Design. The library's GroupNorm runs one block per (sample, group) row:
+// 8 blocks on 132 SMs at batch 1. Here every row is split over many
+// blocks: K3 as a two-stage reduction (grid (rows, chunks) of partial
+// sums, each block reducing in a fixed tree, then one thread per row
+// adding its chunks in order: no float atomics, so two runs are bitwise
+// equal), K4 and K5 as grids (rows, S / 8192) with each block's
+// coefficients loaded once. Loads and stores are 16 B a thread where a
+// row's length is a multiple of 16 B and the pointers are 16-B aligned,
+// one element a thread otherwise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// elements a block of K4 / K5 covers: 4 vectors of 16 B a thread at bf16
+constexpr int64_t kAffineChunk = (int64_t)kThreads * 8 * 4;
+constexpr int kMaxGridY = 65535;
+
+enum DType { kBF16 = 0, kF32 = 1, kF64 = 2 };
+
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<double> { using type = double; };
+
+__device__ __forceinline__ float up(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float up(float v) { return v; }
+__device__ __forceinline__ double up(double v) { return v; }
+
+__device__ __forceinline__ void down(float v, __nv_bfloat16& o) {
+  o = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void down(float v, float& o) { o = v; }
+__device__ __forceinline__ void down(double v, double& o) { o = v; }
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// v rounded to T and back: one operation's result in T
+template <typename T>
+__device__ __forceinline__ typename Acc<T>::type in_t(
+    typename Acc<T>::type v) {
+  T t;
+  down(v, t);
+  return up(t);
+}
+
+// 16 bytes of T
+template <typename T> struct alignas(16) Pack {
+  static constexpr int N = 16 / sizeof(T);
+  T v[N];
+};
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// the block's sum of a, in a fixed order: each warp by shuffles, then
+// thread 0 over the warps in order; valid in thread 0
+template <typename A>
+__device__ __forceinline__ A block_sum(A a, A* smem) {
+  for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
+  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = a;
+  __syncthreads();
+  A s = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kWarps; ++w) s += smem[w];
+  __syncthreads();
+  return s;
+}
+
+// K3 stage 1: block (row, k) writes part[row, k] = (sum u, sum u*v) over
+// the row's elements [k * chunk, (k + 1) * chunk). kSquare: v is u.
+template <typename T, bool kVec, bool kSquare>
+__global__ void __launch_bounds__(kThreads)
+    sums_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                typename Acc<T>::type* __restrict__ part, int64_t S,
+                int64_t chunk) {
+  using A = typename Acc<T>::type;
+  __shared__ A smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const int chunks = gridDim.y;
+  const int64_t s0 = (int64_t)blockIdx.y * chunk;
+  const int64_t s1 = s0 + chunk < S ? s0 + chunk : S;
+  const T* ur = u + row * S;
+  const T* vr = kSquare ? ur : v + row * S;
+  A a1 = 0, a2 = 0;
+  if (kVec) {
+    constexpr int N = Pack<T>::N;
+    const Pack<T>* up4 = reinterpret_cast<const Pack<T>*>(ur);
+    const Pack<T>* vp4 = reinterpret_cast<const Pack<T>*>(vr);
+    for (int64_t i = s0 / N + threadIdx.x; i < s1 / N; i += kThreads) {
+      const Pack<T> pu = up4[i];
+      if (kSquare) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const A x = up(pu.v[j]);
+          a1 += x;
+          a2 += x * x;
+        }
+      } else {
+        const Pack<T> pv = vp4[i];
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const A x = up(pu.v[j]);
+          a1 += x;
+          a2 += x * up(pv.v[j]);
+        }
+      }
+    }
+  } else {
+    for (int64_t i = s0 + threadIdx.x; i < s1; i += kThreads) {
+      const A x = up(ur[i]);
+      a1 += x;
+      a2 += x * (kSquare ? x : up(vr[i]));
+    }
+  }
+  a1 = block_sum(a1, smem);
+  a2 = block_sum(a2, smem);
+  if (threadIdx.x == 0) {
+    part[(row * chunks + blockIdx.y) * 2] = a1;
+    part[(row * chunks + blockIdx.y) * 2 + 1] = a2;
+  }
+}
+
+// K3 stage 2: out[0, row] = sum_k part[row, k, 0], out[1, row] likewise,
+// over k in order
+template <typename A>
+__global__ void __launch_bounds__(kThreads)
+    sums_finish(const A* __restrict__ part, A* __restrict__ out,
+                int64_t rows, int chunks) {
+  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  A s1 = 0, s2 = 0;
+  for (int k = 0; k < chunks; ++k) {
+    s1 += part[(r * chunks + k) * 2];
+    s2 += part[(r * chunks + k) * 2 + 1];
+  }
+  out[r] = s1;
+  out[rows + r] = s2;
+}
+
+// K4: y = x * a[row] + b[row] in A, stored in T
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    affine_kernel(const T* __restrict__ x,
+                  const typename Acc<T>::type* __restrict__ a,
+                  const typename Acc<T>::type* __restrict__ b,
+                  T* __restrict__ y, int64_t S) {
+  using A = typename Acc<T>::type;
+  const int64_t row = blockIdx.x;
+  const A ca = a[row], cb = b[row];
+  const int64_t s0 = (int64_t)blockIdx.y * kAffineChunk;
+  const int64_t s1 = s0 + kAffineChunk < S ? s0 + kAffineChunk : S;
+  const T* xr = x + row * S;
+  T* yr = y + row * S;
+  if (kVec) {
+    constexpr int N = Pack<T>::N;
+    const Pack<T>* x4 = reinterpret_cast<const Pack<T>*>(xr);
+    Pack<T>* y4 = reinterpret_cast<Pack<T>*>(yr);
+    for (int64_t i = s0 / N + threadIdx.x; i < s1 / N; i += kThreads) {
+      const Pack<T> px = x4[i];
+      Pack<T> py;
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        down(add_rn(mul_rn(up(px.v[j]), ca), cb), py.v[j]);
+      y4[i] = py;
+    }
+  } else {
+    for (int64_t i = s0 + threadIdx.x; i < s1; i += kThreads)
+      down(add_rn(mul_rn(up(xr[i]), ca), cb), yr[i]);
+  }
+}
+
+// K5: dx = ((dy * P[row]) + (x * Q[row])) + R[row], each operation rounded
+// to T
+template <typename T>
+__device__ __forceinline__ T combine3(T dy, T x, typename Acc<T>::type p,
+                                     typename Acc<T>::type q,
+                                     typename Acc<T>::type r) {
+  using A = typename Acc<T>::type;
+  const A t1 = in_t<T>(mul_rn(up(dy), p));
+  const A t2 = in_t<T>(mul_rn(up(x), q));
+  const A t3 = in_t<T>(add_rn(t1, t2));
+  T out;
+  down(add_rn(t3, r), out);
+  return out;
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    affine3_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                   const T* __restrict__ P, const T* __restrict__ Q,
+                   const T* __restrict__ R, T* __restrict__ dx, int64_t S) {
+  using A = typename Acc<T>::type;
+  const int64_t row = blockIdx.x;
+  const A p = up(P[row]), q = up(Q[row]), r = up(R[row]);
+  const int64_t s0 = (int64_t)blockIdx.y * kAffineChunk;
+  const int64_t s1 = s0 + kAffineChunk < S ? s0 + kAffineChunk : S;
+  const T* dyr = dy + row * S;
+  const T* xr = x + row * S;
+  T* dxr = dx + row * S;
+  if (kVec) {
+    constexpr int N = Pack<T>::N;
+    const Pack<T>* g4 = reinterpret_cast<const Pack<T>*>(dyr);
+    const Pack<T>* x4 = reinterpret_cast<const Pack<T>*>(xr);
+    Pack<T>* d4 = reinterpret_cast<Pack<T>*>(dxr);
+    for (int64_t i = s0 / N + threadIdx.x; i < s1 / N; i += kThreads) {
+      const Pack<T> pg = g4[i], px = x4[i];
+      Pack<T> pd;
+#pragma unroll
+      for (int j = 0; j < N; ++j) pd.v[j] = combine3(pg.v[j], px.v[j], p, q, r);
+      d4[i] = pd;
+    }
+  } else {
+    for (int64_t i = s0 + threadIdx.x; i < s1; i += kThreads)
+      dxr[i] = combine3(dyr[i], xr[i], p, q, r);
+  }
+}
+
+template <typename T>
+bool vec_ok(int64_t S, std::initializer_list<const void*> ptrs) {
+  if (S % Pack<T>::N) return false;
+  for (const void* p : ptrs)
+    if (p != nullptr && !aligned16(p)) return false;
+  return true;
+}
+
+template <typename T>
+int launch_sums(const void* u, const void* v, void* part, void* out,
+                int64_t rows, int64_t S, int64_t chunk, int chunks,
+                cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  const T* ut = (const T*)u;
+  A* pt = (A*)part;
+  const dim3 grid((unsigned)rows, (unsigned)chunks);
+  const bool vec = chunk % Pack<T>::N == 0 && vec_ok<T>(S, {u, v});
+  auto kernel = v == nullptr
+                    ? (vec ? sums_kernel<T, true, true>
+                           : sums_kernel<T, false, true>)
+                    : (vec ? sums_kernel<T, true, false>
+                           : sums_kernel<T, false, false>);
+  kernel<<<grid, kThreads, 0, s>>>(ut, v == nullptr ? ut : (const T*)v, pt,
+                                   S, chunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((rows + kThreads - 1) / kThreads);
+  sums_finish<A><<<blocks, kThreads, 0, s>>>(pt, (A*)out, rows, chunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_affine(const void* x, const void* a, const void* b, void* y,
+                  int64_t rows, int64_t S, cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  const dim3 grid((unsigned)rows,
+                  (unsigned)((S + kAffineChunk - 1) / kAffineChunk));
+  if (vec_ok<T>(S, {x, y}))
+    affine_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const A*)a, (const A*)b, (T*)y, S);
+  else
+    affine_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const A*)a, (const A*)b, (T*)y, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_affine3(const void* dy, const void* x, const void* P,
+                   const void* Q, const void* R, void* dx, int64_t rows,
+                   int64_t S, cudaStream_t s) {
+  const dim3 grid((unsigned)rows,
+                  (unsigned)((S + kAffineChunk - 1) / kAffineChunk));
+  if (vec_ok<T>(S, {dy, x, dx}))
+    affine3_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
+        (T*)dx, S);
+  else
+    affine3_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
+        (T*)dx, S);
+  return (int)cudaGetLastError();
+}
+
+// the grid's limits: rows on x (up to 2^31 - 1), chunks on y
+bool grid_ok(long long rows, long long ychunks) {
+  return rows > 0 && rows <= 0x7fffffffLL && ychunks > 0 &&
+         ychunks <= kMaxGridY;
+}
+
+}  // namespace
+
+// K3: out (2, rows) = per row (sum u, sum u * v); v == NULL means v = u.
+// part is scratch of rows * chunks * 2 statistics-type values; each block
+// covers `chunk` elements of a row (chunks * chunk >= S).
+extern "C" int chan_sums(const void* u, const void* v, void* part, void* out,
+                         int dtype, long long rows, long long S,
+                         long long chunk, int chunks, void* stream) {
+  if (rows == 0) return (int)cudaGetLastError();
+  if (!grid_ok(rows, chunks) || chunk <= 0 || chunk * chunks < S)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case kBF16:
+      return launch_sums<__nv_bfloat16>(u, v, part, out, rows, S, chunk,
+                                        chunks, s);
+    case kF32:
+      return launch_sums<float>(u, v, part, out, rows, S, chunk, chunks, s);
+    case kF64:
+      return launch_sums<double>(u, v, part, out, rows, S, chunk, chunks, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4: y = x * a + b per row (a, b of rows statistics-type values)
+extern "C" int chan_affine(const void* x, const void* a, const void* b,
+                           void* y, int dtype, long long rows, long long S,
+                           void* stream) {
+  if (rows == 0 || S == 0) return (int)cudaGetLastError();
+  if (!grid_ok(rows, (S + kAffineChunk - 1) / kAffineChunk))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case kBF16: return launch_affine<__nv_bfloat16>(x, a, b, y, rows, S, s);
+    case kF32: return launch_affine<float>(x, a, b, y, rows, S, s);
+    case kF64: return launch_affine<double>(x, a, b, y, rows, S, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: dx = dy * P + x * Q + R per row (P, Q, R of rows values of x's type)
+extern "C" int chan_affine3(const void* dy, const void* x, const void* P,
+                            const void* Q, const void* R, void* dx, int dtype,
+                            long long rows, long long S, void* stream) {
+  if (rows == 0 || S == 0) return (int)cudaGetLastError();
+  if (!grid_ok(rows, (S + kAffineChunk - 1) / kAffineChunk))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case kBF16:
+      return launch_affine3<__nv_bfloat16>(dy, x, P, Q, R, dx, rows, S, s);
+    case kF32: return launch_affine3<float>(dy, x, P, Q, R, dx, rows, S, s);
+    case kF64: return launch_affine3<double>(dy, x, P, Q, R, dx, rows, S, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -204,7 +204,8 @@ def run_rank(rank: int, world: int, dev, weights=None) -> dict:
     """The dry run's checks on one rank of a process group that is up.
     `weights`: a state dict file for the checks' model (default: torch's
     init from seed 0). Returns the losses, the tower's whole output (rank
-    0, space > 1) and the K1 and K2 launches of the synthesis."""
+    0, space > 1) and the kernels' launches over the rank's checks (K3-K5
+    in its steps' GroupNorms, K1 and K2 in its synthesis)."""
     import numpy as np
     import torch
 
@@ -227,6 +228,7 @@ def run_rank(rank: int, world: int, dev, weights=None) -> dict:
     # batch replicated over 'space'
     dp_mesh = make_mesh(world, 1)
     out = {"mesh": {"data": data, "space": space}}
+    kernels.reset_launches()
 
     def model_from_init():
         torch.manual_seed(0)
@@ -285,18 +287,15 @@ def run_rank(rank: int, world: int, dev, weights=None) -> dict:
         bank.add_debug_subject(seed=0, extent=(20, 20, 20))
         knobs = build_knobs_stack(scfg, "synth")
         gens = [item_generator(2, 0, i, dev) for i in range(data)]
-        kernels.reset_launches()
         syn_batch = sharded_synth_batch(mesh, gens, bank.to_device(0, dev),
                                         scfg, tuple(syn_cfg.tasks), "synth",
                                         knobs)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        out["launches"] = dict(kernels.LAUNCHES)
         torch.manual_seed(1)
         _, syn_model = build_model(syn_cfg, device=dev)
         out["synth_loss_total"] = _step_loss(syn_model, syn_cfg, syn_batch,
                                              mesh)
         _finite("synth-pipeline", out["synth_loss_total"])
+    out["launches"] = dict(kernels.LAUNCHES)
     return out
 
 
@@ -359,8 +358,8 @@ def dryrun_multichip(n_devices: int, device=None, weights=None,
     makes this raise with its output, the other ranks stopped. Prints the JAX dry run's
     `dryrun_multichip ok:` line and returns rank 0's results: the mesh,
     `loss_total` (data-parallel), `fsdp_loss_total`, `space_loss_total`
-    and `tower` (space > 1), `synth_loss_total`, and `launches`, the K1
-    and K2 launches of each rank's synthesis (`launches_by_rank`)."""
+    and `tower` (space > 1), `synth_loss_total`, and `launches`, each
+    rank's kernel launches over its checks (`launches_by_rank`)."""
     import torch
 
     n = int(n_devices)

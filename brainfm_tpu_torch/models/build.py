@@ -177,9 +177,11 @@ def _cond_terms(cfg) -> int:
 def build_backbone(cfg, name: str | None = None, cond_channels=None):
     """The backbone `name` (default cfg.backbone): unet3d, unet3d_sep or
     unet2d. cfg.remat sets its blocks' rematerialization in the backward
-    pass (unet3d.remat_mode: False, True/'full', 'save_convs'). The input
-    is widened by `cond_channels`, by default one channel per term of a
-    conditioned config (cfg.condition 'mask', 'flip' or 'mask+flip'), the
+    pass (unet3d.remat_mode: False, True/'full', 'save_convs'), and
+    cfg.phase_upconv (default true, as the JAX package reads it) the
+    decoders' pair form (unet3d.Decoder). The input is widened by
+    `cond_channels`, by default one channel per term of a conditioned
+    config (cfg.condition 'mask', 'flip' or 'mask+flip'), the
     channels the train step concatenates (train/loop.py::apply_condition)."""
     name = name or cfg.backbone or "unet3d"
     classes = {"unet3d": UNet3D, "unet3d_sep": UNet3DSep, "unet2d": UNet2D}
@@ -193,7 +195,8 @@ def build_backbone(cfg, name: str | None = None, cond_channels=None):
                          layer_order=cfg.layer_order or "gcl",
                          num_groups=int(cfg.num_groups or 8),
                          is_unit_vector=bool(cfg.unit_feat),
-                         remat=cfg.get("remat") or False)
+                         remat=cfg.get("remat") or False,
+                         phase_upconv=bool(cfg.get("phase_upconv", True)))
 
 
 def _task_head(cfg, out_channels, is_3d=True):

@@ -8,12 +8,22 @@ the shared-encoder / dual-decoder `UNet3DSep` and the 2-D `UNet2D`
 (`is_3d=False` through every block). Module and parameter names are the
 reference's, so a state dict loads by name (models/params_io.py).
 
-The JAX package's TPU workarounds are not ported; their plain forms are,
-which tests/test_phase_upconv.py proves equal: `_phase_upconv` /
-`_phase_pair_conv` and `_pair_groupnorm` / `_fused_groupnorm` are plain
-upsample + concat + Conv3d and nn.GroupNorm. `_remat_block` is each
-DoubleConv's `remat` mode (`remat_mode`), honoured when gradients are
-recorded.
+The JAX package's own forms are ported as it writes them. Every GroupNorm
+is `ops/groupnorm.py::fused_group_norm` (`_fused_groupnorm`: sums and a
+composite affine, analytic backward, on the kernels K3-K5 of
+csrc/groupnorm.cu on the card), with the parameters of the
+`nn.GroupNorm` each SingleConv keeps as their holder. A decoder level
+whose upsample is an exact 2x on every axis (`Decoder`'s gate, the JAX
+`_DecoderStack`'s) takes the pair (enc, z) and never materializes the
+upsample or the concat: `pair_group_norm` (`_pair_groupnorm`),
+pointwise layers on both parts, then `phase_pair_conv`
+(`_phase_pair_conv`: a skip conv on enc plus one phase-folded conv on the
+coarse z, then depth-to-space). `phase_upconv: false` in the cfg turns
+the pair off, as in the JAX package. `_nearest_upsample_to` repeats by
+reshape and expand for the ratios 2s and 2s - 1 (a block-sum backward)
+and gathers for any other. `_remat_block` is each DoubleConv's `remat`
+mode (`remat_mode`), honoured when gradients are recorded; `save_convs`
+keeps one convolution output per SingleConv, the pair's included.
 
 Inside `parallel.spatial.space_scope` (the port's counterpart of the JAX
 package's GSPMD spatial sharding) the 3-D network runs on D slabs: each
@@ -23,7 +33,10 @@ nearest upsample stay local while the slabs are aligned, and the deep
 levels that do not split evenly (`level_layout`, the rule of the JAX
 package's `_replicate_if_degenerate`) run whole on every rank: their
 input is gathered (`gather_space`) and their output sliced back where a
-sharded level reads it (`slice_space`). Outside a scope nothing changes.
+sharded level reads it (`slice_space`). Inside a scope the pair is off at
+every level and the slabs' GroupNorm is `space_group_norm`, as the JAX
+package turns the pair off under space sharding (`_space_sharded`).
+Outside a scope nothing changes.
 """
 
 from __future__ import annotations
@@ -32,8 +45,11 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+from torch import Tensor, nn
+from torch.utils.flop_counter import conv_flop_count, register_flop_formula
 
+from ..ops.groupnorm import (fused_group_norm, num_groups_of,
+                             pair_group_norm)
 from ..parallel.spatial import (current_space, gather_space, level_layout,
                                 slice_space, space_conv, space_group_norm,
                                 use_scope, whole)
@@ -45,16 +61,114 @@ def feature_maps(f_maps: int, num_levels: int) -> list[int]:
     return [f_maps * 2 ** k for k in range(num_levels)]
 
 
-def _num_groups(channels: int, num_groups: int) -> int:
-    if channels < num_groups:
-        return 1
-    if channels % num_groups:
-        raise ValueError(f"{channels} channels in {num_groups} groups")
-    return num_groups
+def fold_phase_kernel(kb):
+    """The coarse tail's 3^3 kernel (co, cz, 3, 3, 3) folded for the 8
+    fine output phases into (8 * co, cz, 3, 3, 3), phase-major: output
+    channel ((p * 2 + q) * 2 + r) * co + o for the fine phase (p, q, r).
+    The JAX package's einsum with `_PHASE_MAP` as sums of taps: on each
+    axis a fine tap d lands on coarse tap floor((p + d - 1) / 2) + 1, so
+    phase 0 maps taps (0, 1, 2) to (0, 1, 1) and phase 1 to (1, 1, 2)."""
+    k = kb
+    for d in (-3, -2, -1):
+        t0, t1, t2 = k.unbind(d)
+        zero = torch.zeros_like(t0)
+        k = torch.stack([torch.stack([t0, t1 + t2, zero], d),
+                         torch.stack([zero, t0 + t1, t2], d)])
+    # (r, q, p, co, cz, 3, 3, 3) -> (p, q, r, co, ...)
+    k = k.permute(2, 1, 0, 3, 4, 5, 6, 7)
+    return k.reshape(8 * kb.shape[0], *kb.shape[1:])
+
+
+def _compute_dtype(t):
+    """The convolutions' dtype: autocast's where it is on for t's device,
+    else t's (the custom operator below is not cast by autocast)."""
+    dt = t.device.type
+    if torch.amp.is_autocast_available(dt) and torch.is_autocast_enabled(dt):
+        return torch.get_autocast_dtype(dt)
+    return t.dtype
+
+
+@torch.library.custom_op("brainfm::phase_pair_conv", mutates_args=())
+def _pair_conv(enc: Tensor, z: Tensor, wa: Tensor, kph: Tensor) -> Tensor:
+    """conv3x3(enc, wa) + depth_to_space(conv3x3(z, kph)): the two cuDNN
+    convolutions of phase_pair_conv as one operator with one output, the
+    tensor that `save_convs` keeps (the JAX package's one `conv_out`)."""
+    ya = F.conv3d(enc, wa, padding=1)
+    yb = F.conv3d(z, kph, padding=1)
+    n, co = ya.shape[:2]
+    d, h, w = yb.shape[2:]
+    # out[n, o, 2i+p, 2j+q, 2k+r] += yb[n, (p, q, r, o), i, j, k], in place
+    ya.view(n, co, d, 2, h, 2, w, 2).add_(
+        yb.view(n, 2, 2, 2, co, d, h, w).permute(0, 4, 5, 1, 6, 2, 7, 3))
+    return ya
+
+
+@_pair_conv.register_fake
+def _(enc, z, wa, kph):
+    return enc.new_empty((enc.shape[0], wa.shape[0]) + tuple(enc.shape[2:]))
+
+
+def _pair_conv_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+_CONV3 = dict(stride=[1] * 3, padding=[1] * 3, dilation=[1] * 3,
+              transposed=False, output_padding=[0] * 3, groups=1)
+
+
+def _pair_conv_backward(ctx, g):
+    enc, z, wa, kph = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    g = g.contiguous()
+    d_enc, d_wa, _ = torch.ops.aten.convolution_backward(
+        g, enc, wa, None, **_CONV3, output_mask=[need[0], need[2], False])
+    n, co = g.shape[:2]
+    d, h, w = z.shape[2:]
+    gb = g.view(n, co, d, 2, h, 2, w, 2).permute(0, 3, 5, 7, 1, 2, 4, 6)
+    gb = gb.reshape(n, 8 * co, d, h, w)
+    d_z, d_kph, _ = torch.ops.aten.convolution_backward(
+        gb, z, kph, None, **_CONV3, output_mask=[need[1], need[3], False])
+    return d_enc, d_z, d_wa, d_kph
+
+
+_pair_conv.register_autograd(_pair_conv_backward,
+                             setup_context=_pair_conv_setup)
+
+
+@register_flop_formula(torch.ops.brainfm.phase_pair_conv)
+def _pair_conv_flops(enc_shape, z_shape, wa_shape, kph_shape,
+                     out_shape=None, **kwargs) -> int:
+    coarse = [z_shape[0], kph_shape[0], *z_shape[2:]]
+    return (conv_flop_count(list(enc_shape), list(wa_shape), list(out_shape))
+            + conv_flop_count(list(z_shape), list(kph_shape), coarse))
+
+
+def phase_pair_conv(enc, z, weight):
+    """`_phase_pair_conv`: the 3^3 'SAME' conv of the virtual
+    concat([enc, nearest_up2(z)]) with `weight` (co, ce + cz, 3, 3, 3),
+    without materializing the upsample or the concat: a skip conv on enc
+    plus one conv of z with the tail folded by the phase map
+    (8 * co channels at the coarse grid), then depth-to-space. Both
+    convolutions are cuDNN's; the dtype is autocast's where it is on."""
+    ce = enc.shape[1]
+    dt = _compute_dtype(enc)
+    kph = fold_phase_kernel(weight[:, ce:]).to(dt)
+    return _pair_conv(enc.to(dt), z.to(dt), weight[:, :ce].to(dt), kph)
+
+
+def _pointwise(fn, x):
+    return tuple(fn(t) for t in x) if isinstance(x, tuple) else fn(x)
 
 
 class SingleConv(nn.Module):
-    """One `layer_order` unit, e.g. 'gcl': GroupNorm(in) -> Conv -> LeakyReLU."""
+    """One `layer_order` unit, e.g. 'gcl': GroupNorm(in) -> Conv -> LeakyReLU.
+
+    The input may be a pair (enc, z) standing for concat([enc,
+    nearest_up2(z)]), never materialized (the JAX SingleConv's): GroupNorm
+    is `pair_group_norm`, pointwise layers apply to both parts and the conv
+    is `phase_pair_conv`, whose output is an ordinary fine-grid tensor.
+    `groupnorm` (an nn.GroupNorm) holds the GroupNorm's parameters; outside
+    a space scope `fused_group_norm` computes it."""
 
     def __init__(self, in_channels, out_channels, order="gcl", num_groups=8,
                  kernel_size=3, is_3d=True):
@@ -65,8 +179,8 @@ class SingleConv(nn.Module):
         ch = in_channels
         for c in order:
             if c == "g":
-                self.groupnorm = nn.GroupNorm(_num_groups(ch, num_groups), ch,
-                                              eps=1e-5)
+                self.groupnorm = nn.GroupNorm(num_groups_of(ch, num_groups),
+                                              ch, eps=1e-5)
             elif c == "c":
                 conv = nn.Conv3d if is_3d else nn.Conv2d
                 self.conv = conv(ch, out_channels, kernel_size,
@@ -79,18 +193,33 @@ class SingleConv(nn.Module):
     def forward(self, x):
         sc = current_space()
         for c in self.order:
+            pair = isinstance(x, tuple)
             if c == "g":
-                x = (self.groupnorm(x) if sc is None
-                     else space_group_norm(x, self.groupnorm, sc))
+                gn = self.groupnorm
+                if sc is not None:
+                    x = space_group_norm(x, gn, sc)
+                elif pair:
+                    x = pair_group_norm(*x, gn.weight, gn.bias,
+                                        gn.num_groups, gn.eps)
+                else:
+                    x = fused_group_norm(x, gn.weight, gn.bias,
+                                         gn.num_groups, gn.eps)
             elif c == "c":
-                x = self.conv(x) if sc is None else space_conv(self.conv, x,
-                                                               sc)
+                if pair:
+                    x = phase_pair_conv(*x, self.conv.weight)
+                    if self.conv.bias is not None:
+                        x = x + self.conv.bias.to(x.dtype).reshape(
+                            1, -1, 1, 1, 1)
+                elif sc is None:
+                    x = self.conv(x)
+                else:
+                    x = space_conv(self.conv, x, sc)
             elif c == "l":
-                x = F.leaky_relu(x, 0.01)
+                x = _pointwise(lambda t: F.leaky_relu(t, 0.01), x)
             elif c == "r":
-                x = F.relu(x)
+                x = _pointwise(F.relu, x)
             else:
-                x = F.elu(x)
+                x = _pointwise(F.elu, x)
         return x
 
 
@@ -110,7 +239,8 @@ def remat_mode(remat):
 
 
 def _save_convs_policy(ctx, op, *args, **kwargs):
-    if op is torch.ops.aten.convolution.default:
+    if op in (torch.ops.aten.convolution.default,
+              torch.ops.brainfm.phase_pair_conv.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -168,33 +298,67 @@ class Encoder(nn.Module):
 
 
 def _nearest_upsample_to(x, target_spatial):
-    """F.interpolate(mode='nearest') semantics, index floor(i * in / out),
-    in exact integer arithmetic."""
+    """F.interpolate(mode='nearest') semantics, index floor(i * in / out).
+    An axis whose target is 2 * src or 2 * src - 1 repeats each voxel twice
+    (then crops), all such axes in one reshape and expand, whose backward
+    is a block sum; any other ratio gathers, in exact integer arithmetic."""
+    rep = []
     for axis, tgt in enumerate(target_spatial):
         src = x.shape[axis + 2]
-        if src != tgt:
+        if src == tgt:
+            rep.append(False)
+        elif tgt in (2 * src, 2 * src - 1):
+            rep.append(True)
+        else:
+            rep.append(False)
             idx = torch.arange(tgt, device=x.device) * src // tgt
             x = x.index_select(axis + 2, idx)
+    if any(rep):
+        view, expand = list(x.shape[:2]), list(x.shape[:2])
+        for n, r in zip(x.shape[2:], rep):
+            view += [n, 1] if r else [n]
+            expand += [n, 2] if r else [n]
+        x = x.reshape(view).expand(expand).reshape(
+            *x.shape[:2], *(2 * n if r else n
+                            for n, r in zip(x.shape[2:], rep)))
+        for axis, tgt in enumerate(target_spatial):
+            if x.shape[axis + 2] != tgt:
+                x = x.narrow(axis + 2, 0, tgt)
     return x
 
 
 class Decoder(nn.Module):
+    """Upsample the coarser level to the skip's extent, concatenate,
+    DoubleConv. Under the JAX `_DecoderStack`'s gate (`phase_upconv`,
+    3-D, out_channels <= 256, every axis exactly 2x, `pair` allowed: no
+    space scope) the block takes the pair (enc, x) instead and neither the
+    upsample nor the concat is made. (The JAX gate also refuses a 'b' in
+    the order; the port has no BatchNorm layer.)"""
+
     def __init__(self, in_channels, out_channels, order, num_groups,
-                 remat=False, is_3d=True):
+                 remat=False, is_3d=True, phase_upconv=True):
         super().__init__()
+        self.out_channels = out_channels
+        self.is_3d = is_3d
+        self.phase_upconv = phase_upconv
         self.basic_module = DoubleConv(in_channels, out_channels, False, order,
                                        num_groups, remat, is_3d)
 
-    def forward(self, enc, x):
+    def forward(self, enc, x, pair=True):
+        if (pair and self.phase_upconv and self.is_3d
+                and self.out_channels <= 256
+                and all(t == 2 * s and s > 0
+                        for s, t in zip(x.shape[2:], enc.shape[2:]))):
+            return self.basic_module((enc, x))
         x = _nearest_upsample_to(x, enc.shape[2:])
         return self.basic_module(torch.cat([enc, x], dim=1))
 
 
-def _decoders(fm, order, num_groups, remat, is_3d):
+def _decoders(fm, order, num_groups, remat, is_3d, phase_upconv=True):
     rev = fm[::-1]
     return nn.ModuleList(
         Decoder(rev[i + 1] + rev[i], rev[i + 1], order, num_groups, remat,
-                is_3d) for i in range(len(fm) - 1))
+                is_3d, phase_upconv) for i in range(len(fm) - 1))
 
 
 def _decode(decoders, enc_feats, is_unit_vector):
@@ -211,14 +375,14 @@ def _decode(decoders, enc_feats, is_unit_vector):
             x = dec(skip, x)
         elif not sc.levels[n - 2 - i]:
             with whole():
-                x = dec(skip, x)
+                x = dec(skip, x, pair=False)
         else:
             if not sc.levels[n - 1 - i]:
                 # the level below ran whole: upsample it to this level's
                 # whole extent and keep this rank's slab
                 x = slice_space(_nearest_upsample_to(
                     x, (skip.shape[2] * sc.n,) + tuple(skip.shape[3:])))
-            x = dec(skip, x)
+            x = dec(skip, x, pair=False)
         feats.append(x)
     if is_unit_vector:
         norm = torch.linalg.vector_norm(feats[-1], dim=1, keepdim=True)
@@ -255,15 +419,19 @@ def _encode(encoders, x):
 
 
 class UNet3D(nn.Module):
+    """`phase_upconv` (cfg `phase_upconv`, default on): the decoder levels
+    with an exact 2x upsample take the pair form (`Decoder`)."""
+
     def __init__(self, in_channels=1, f_maps=64, num_levels=5,
                  layer_order="gcl", num_groups=8, is_unit_vector=False,
-                 remat=False, is_3d=True):
+                 remat=False, is_3d=True, phase_upconv=True):
         super().__init__()
         fm = feature_maps(f_maps, num_levels)
         self.is_unit_vector = is_unit_vector
         self.encoders = _encoders(in_channels, fm, layer_order, num_groups,
                                   remat, is_3d)
-        self.decoders = _decoders(fm, layer_order, num_groups, remat, is_3d)
+        self.decoders = _decoders(fm, layer_order, num_groups, remat, is_3d,
+                                  phase_upconv)
 
     def forward(self, x):
         return self.get_feature(x)[-1]
@@ -288,16 +456,16 @@ class UNet3DSep(nn.Module):
 
     def __init__(self, in_channels=1, f_maps=64, num_levels=5,
                  layer_order="gcl", num_groups=8, is_unit_vector=False,
-                 remat=False):
+                 remat=False, phase_upconv=True):
         super().__init__()
         fm = feature_maps(f_maps, num_levels)
         self.is_unit_vector = is_unit_vector
         self.encoders = _encoders(in_channels, fm, layer_order, num_groups,
                                   remat, True)
         self.decoders_normal = _decoders(fm, layer_order, num_groups, remat,
-                                         True)
+                                         True, phase_upconv)
         self.decoders_pathol = _decoders(fm, layer_order, num_groups, remat,
-                                         True)
+                                         True, phase_upconv)
 
     def forward(self, x):
         return {k: v[-1] for k, v in self.get_feature(x).items()}

@@ -30,10 +30,13 @@ timing it:
   `torch.utils.checkpoint` runs inside the backward, so it is counted, as
   XLA's count of the JAX step includes its remat;
 - bytes under `TensorBytes`, a `TorchDispatchMode` that adds up the bytes
-  of every aten operation's tensor inputs and outputs (views, which move
-  nothing, left out). Eager PyTorch fuses nothing, so this is what the
-  step's kernels read and write before cache hits; it is not XLA's
-  post-fusion `bytes accessed`, which the JAX script prints.
+  of every operation's tensor inputs and outputs (views, which move
+  nothing, left out): the aten operations and the port's own operators,
+  K3-K5 of the GroupNorm (`brainfm.chan_sums`, `chan_affine`,
+  `chan_affine3`) and the decoder's pair conv
+  (`brainfm.phase_pair_conv`). Eager PyTorch fuses nothing else, so this
+  is what the step's kernels read and write before cache hits; it is not
+  XLA's post-fusion `bytes accessed`, which the JAX script prints.
 
 It prints the root script's two lines per mode: TF and GiB (with the
 exact counts), then the parameter count and the AdamW traffic of 7 fp32
@@ -142,8 +145,9 @@ def _tensor_bytes_mode():
     import torch
 
     class TensorBytes(TorchDispatchMode):
-        """Adds up the bytes of every aten operation's tensor inputs and
-        outputs; view operations move nothing and are left out."""
+        """Adds up the bytes of every operation's tensor inputs and
+        outputs (aten's and the port's custom operators); view operations
+        move nothing and are left out."""
 
         def __init__(self):
             super().__init__()

@@ -13,10 +13,12 @@ limit:
   flagship's three widest-traffic shapes (TF/s), in the NCDHW layout the
   port's model runs and in `channels_last_3d`; the
   elementwise bf16 `x*1.0001+0.1` at 220^3 x 64 (GB/s, one read and one
-  write of each element); `nn.GroupNorm(8)` then `leaky_relu` at 220^3 x
-  64 as the port runs it (bf16 input under bf16 autocast, which runs the
-  norm in fp32 and hands back fp32; GB/s over one read of the input and
-  one write of the output);
+  write of each element); at 220^3 x 64 under bf16 autocast, GB/s over
+  one read of the bf16 input and one write of the output: the library's
+  `nn.GroupNorm(8)` then `leaky_relu` (autocast runs the norm in fp32 and
+  hands back fp32), and the port's GroupNorm path as the model runs it,
+  `ops/groupnorm.py::fused_group_norm` (K3 and K4 on the card, bf16 in
+  and out) then `leaky_relu`;
 - FLOP counts (`torch.utils.flop_counter.FlopCounterMode`: convolutions
   and matrix products, forward and backward, with any recompute): the
   220^3 L6 whole-volume forward of the bench's served model on the meta
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from brainfm_tpu_torch import bench
+from brainfm_tpu_torch.ops.groupnorm import fused_group_norm
 from brainfm_tpu_torch.device import card_label, resolve_device
 from brainfm_tpu_torch.utils.profiling import call_times
 
@@ -155,13 +158,21 @@ def probes(dev):
         with torch.autocast(dev.type, dtype=torch.bfloat16):
             return F.leaky_relu(gn(x), 0.01)
 
-    with torch.no_grad():
-        out_dtype = gn_chain().dtype
-        ms = device_ms(gn_chain, dev)
-    nbytes = x.numel() * (x.element_size() + out_dtype.itemsize)
-    yield (f"groupnorm{GROUPS}+leakyrelu {v}^3x{CHANNELS}",
-           {"ms": ms, "gbps": nbytes / ms / 1e6, "bytes": nbytes,
-            "out_dtype": str(out_dtype).removeprefix("torch.")})
+    def port_chain():
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            return F.leaky_relu(fused_group_norm(x, gn.weight, gn.bias,
+                                                 GROUPS, gn.eps), 0.01)
+
+    for name, chain in ((f"groupnorm{GROUPS}+leakyrelu", gn_chain),
+                        (f"port fused_group_norm{GROUPS}+leakyrelu",
+                         port_chain)):
+        with torch.no_grad():
+            out_dtype = chain().dtype
+            ms = device_ms(chain, dev)
+        nbytes = x.numel() * (x.element_size() + out_dtype.itemsize)
+        yield (f"{name} {v}^3x{CHANNELS}",
+               {"ms": ms, "gbps": nbytes / ms / 1e6, "bytes": nbytes,
+                "out_dtype": str(out_dtype).removeprefix("torch.")})
 
 
 def flop_counts(dev):

@@ -9,74 +9,81 @@ Phases, one JSON line each:
   2. kernel  - each kernel against its plain PyTorch version on the card, at
                the generator path's, the serving path's and the bench's
                generator stage's shapes, edge cases included
-               (`kernel_cases`); kernel (warm and cold L2),
+               (`kernel_cases`), and K3-K5 (csrc/groupnorm.cu) at the
+               flagship's decoder pair and served tensor in bf16 and fp32
+               (`gn_cases`); kernel (warm and cold L2),
                plain and library times (CUDA events) beside the byte bound.
                K1 linear at C=12 is also timed on 4 flagship deformation
                draws (seeds 0-3).
   3. slice_reference - a small item made on the GPU and replayed on the CPU
                from the same recorded draws (CPU = the plain versions), and a
                small model run on both.
-  4. slice   - the flagship item (cfgs brain_id + joint: 160^3 from a 192^3
+  4. groupnorm_reference - a small UNet3D (f_maps 8, 4 levels) at fp64:
+               loss and gradients on the card through K3-K5 and the pair
+               conv against the CPU's plain versions, at 32^3 (the pair at
+               every decoder level) and 33^3 (not at the last), and with
+               `phase_upconv` off.
+  5. slice   - the flagship item (cfgs brain_id + joint: 160^3 from a 192^3
                bank, S=4) through synth_item, the L6 f_maps-64 joint forward
                under bf16 autocast and apply_processors; launch counts of
                every kernel over that run.
-  5. serve_reference - a small head file served by the small model on the
+  6. serve_reference - a small head file served by the small model on the
                GPU and on the CPU (prepare_image, evaluate_image with
                postprocess, get_deformed_atlas), compared.
-  6. serve   - three procedural heads served whole at 220^3 by the L6
+  7. serve   - three procedural heads served whole at 220^3 by the L6
                f_maps-64 model (the slice's weights) in bf16 through
                Inferencer.evaluate_path, the deformed atlas on a 256^3
                atlas, one tiled pass; stage times per volume; launch counts
                over those steps.
-  7. train_reference - a small model (f_maps 8, 3 levels, 32^3, S=4, fp32,
+  8. train_reference - a small model (f_maps 8, 3 levels, 32^3, S=4, fp32,
                TF32 off): one train step's losses and gradients on the GPU
                against the CPU from the same params and batch, the params
                after one SGD step, a batch with a NaN voxel that must leave
                the GPU state bitwise as it was, and a checkpoint saved and
                loaded back bitwise on the card.
-  8. train   - the flagship training configuration (the slice's, bf16,
+  9. train   - the flagship training configuration (the slice's, bf16,
                AdamW with its warmup) through train/loop.py::train for one
                epoch of TRAIN_ITR iterations with validation and
                checkpoints, then TRAIN_TIMED timed iterations (item, step);
                every step's loss and skip flag, peak memory, launch counts
                over the phase.
-  9. stream_reference - procedural subject files (write_subject_root) read
+ 10. stream_reference - procedural subject files (write_subject_root) read
                through the codec into the datasets of synth/datasets.py on
                the GPU and on the CPU; one item per dataset with
                deform_one_hots, pathology forced on from the lesion pool
                and the surface task's inverse field, made on the GPU and
                replayed on the CPU from its recorded draws, compared; a
                small model on both.
- 10. stream  - the training CLI (scripts/train.py::main) with the flagship
+ 11. stream  - the training CLI (scripts/train.py::main) with the flagship
                configs on a data root of two datasets at 180^3 (HCP: T1,
                T2; ATLAS: T1 and a lesion pool): one epoch of STREAM_ITR
                iterations on the dataset stream, then --eval_only --resume
                on its checkpoint, then TRAIN_TIMED timed stream iterations
                (item, step); ingest seconds, peak memory, launch counts.
- 11. pathology - items of the shape_id generator (160^3, dopri5,
+ 12. pathology - items of the shape_id generator (160^3, dopri5,
                augment_pathology) with pathology forced on, from random
                shapes and from a lesion file, timed by part (shape or
                lesion warp, advection with its adaptive steps, the rest);
                then the flagship model trains a step on each.
- 12. variants_reference - small models of the variants (the age head,
+ 13. variants_reference - small models of the variants (the age head,
                the sep decoders, the flagship with the frozen critic; f_maps
                8, 3 levels, 32^3): one step's losses (fp32, fp64) and
                gradients (fp64) on the GPU against the CPU.
- 13. variants - each variant at full width through train() (VARIANT_ITR
+ 14. variants - each variant at full width through train() (VARIANT_ITR
                steps, validation, checkpoints), then VARIANT_TIMED timed
                iterations (item, step): joint_age.yaml with brain_id_age.yaml
                (L6, S=4), sep.yaml (L5) on twostage.yaml's generator (S=2,
                pathology), the flagship with losses.implicit_pathol and a
                random-init critic; peak memory and launch counts per
                variant, each at its memory setting (VARIANT_FIT).
- 14. twostage_reference - a small two-stage pair's step (losses, fp64
+ 15. twostage_reference - a small two-stage pair's step (losses, fp64
                gradients) and TwoStageInferencer's outputs, GPU against CPU.
- 15. twostage - the training CLI on twostage.yaml with its generator over
+ 16. twostage - the training CLI on twostage.yaml with its generator over
                the stream phase's data root (two UNet3D f_maps-64 L5,
                160^3, S=2, bf16; TWOSTAGE_ITR iterations), TRAIN_TIMED
                timed stream iterations, then TwoStageInferencer on the run's
                checkpoint serving one procedural head at 220^3 in bf16.
- 16. evaluate_reference - the evaluation CLI (scripts/test.py) with a small
+ 17. evaluate_reference - the evaluation CLI (scripts/test.py) with a small
                model on two procedural 48^3 heads with label-map and MNI-x
                files, on the GPU and with --device cpu: two --models,
                --spacings native 2,2,3 with --add_bf, hemisphere masking,
@@ -85,7 +92,7 @@ Phases, one JSON line each:
                (its five levels need it) GPU against CPU; then a small
                train() with vis_itr=1 (montage, feature strips, NIfTI
                dumps) against the same run with vis_itr=0.
- 17. evaluate - the evaluation CLI on the slice phase's L6 f_maps-64
+ 18. evaluate - the evaluation CLI on the slice phase's L6 f_maps-64
                weights (a .pth) over EVAL_HEADS procedural head(s) at the
                220^3 window in bf16: --spacings native 1.5,1.5,5 --add_bf,
                hemisphere masking, the 256^3 procedural atlas; then
@@ -95,7 +102,7 @@ Phases, one JSON line each:
                out_T1, which must not be 0); stage times per volume and
                setup, scoring time per metric, peak memory, launch counts
                of the serving and of the scoring.
- 18. orbax   - the JAX package's orbax checkpoints committed as fixtures
+ 19. orbax   - the JAX package's orbax checkpoints committed as fixtures
                (tests/fixtures/torch_orbax, JAX TrainStates): the small
                joint model and the two-stage pair (f_maps 8, 3 levels)
                served on the card from their ckp/ roots within MODEL_TOL
@@ -105,14 +112,14 @@ Phases, one JSON line each:
                zero state loaded strictly into the flagship Inferencer,
                one 220^3 volume served in bf16 (K2 in postprocess), the
                params-only and full-state reads timed.
- 19. numerics_reference - the interpol family (grid_pull, grid_push,
+ 20. numerics_reference - the interpol family (grid_pull, grid_push,
                grid_grad at 64^3, orders 1 and 3, bounds zero and dct2;
                resize_spline, restrict_spline), synth_intensities (K2 f32
                against its plain version, with injected noise) and
                odeint_adjoint (rk4 values and gradients), GPU against CPU
                at fp64; then device times of grid_pull and grid_push at
                160^3 and synth_intensities at 192^3.
- 20. multigpu_reference - MGPU_WORLD ranks, each a process of this script
+ 21. multigpu_reference - MGPU_WORLD ranks, each a process of this script
                on the one card (cuda:0), in a gloo process group (NCCL
                refuses two ranks on one device; the line names the
                backend): the L6 f_maps-16 joint model's fp64 step on
@@ -126,24 +133,24 @@ Phases, one JSON line each:
                alone and that rank's noise floor), then a
                MGPU_EXACT_WIN head at fp64 against one rank alone
                (MODEL_TOL, SEG_AGREE).
- 21. multigpu - the training CLI with the flagship configs on the stream
+ 22. multigpu - the training CLI with the flagship configs on the stream
                phase's data root, launched as torchrun launches one rank
                (RANK=0 WORLD_SIZE=1) with --mesh 1 --fsdp on NCCL:
                MULTIGPU_WARM iterations, then MULTIGPU_TIMED timed ones
                (per-rank item, step), peak memory and launches beside the
                stream phase's figures.
- 22. roofline - brainfm_tpu_torch/scripts/roofline.py: the card's delivered
+ 23. roofline - brainfm_tpu_torch/scripts/roofline.py: the card's delivered
                bf16 matmul and conv3d rates, elementwise and GroupNorm +
                LeakyReLU bytes/s at 220^3 x 64, and the FLOP counts of the
                220^3 forward and the bench's train steps; a rate above 105 %
                of the data sheet's peak fails.
- 23. bench   - python -m brainfm_tpu_torch.bench at full size in a child
+ 24. bench   - python -m brainfm_tpu_torch.bench at full size in a child
                process: contract lines only on its stdout, every key of
                the root bench's summary, min <= median <= max for each,
                no failed stage, K1 and K2 launched per generator item;
                its whole-volume and generator clocks beside the serve
                phase's forward and the slice's item.
- 24. entry   - brainfm_tpu_torch/entry.py, the driver contract: entry()'s
+ 25. entry   - brainfm_tpu_torch/entry.py, the driver contract: entry()'s
                fn on the card (the flagship joint model, every parameter
                zero, a 160^3 zero volume, bf16) gives T1 and segmentation
                of the JAX shapes, finite and constant, equal to what the
@@ -153,8 +160,9 @@ Phases, one JSON line each:
                dryrun_multichip(1): one NCCL rank in a process of its own
                (data-parallel, FSDP2 and per-rank synthesis steps), finite
                losses, the FSDP loss within 1e-5 of the data-parallel one,
-               K1 and K2 launched by its synthesis.
- 25. profile_train - brainfm_tpu_torch/scripts/profile_train.py at 128^3
+               every kernel launched on the rank (K1 and K2 by its
+               synthesis, K3-K5 by its steps).
+ 26. profile_train - brainfm_tpu_torch/scripts/profile_train.py at 128^3
                L6 f_maps 64: each remat mode (off, full, save_convs) timed
                over 3 steps after one, then each counted (--ledger: FLOPs
                with the recompute, bytes of every aten operation); `off`
@@ -203,12 +211,14 @@ from brainfm_tpu_torch.models import (apply_processors, build_critic_from_cfg,
                                       build_inpaint_model, build_model,
                                       process_args)
 from brainfm_tpu_torch.models.criterion import make_criterion, weighted_total
+from brainfm_tpu_torch.models.unet3d import UNet3D
 from brainfm_tpu_torch.models.evaluator import (EVAL_LABELS, index_lut,
                                                 ms_ssim_normalized)
 from brainfm_tpu_torch.ops.ode import odeint_adjoint
 from brainfm_tpu_torch.ops.pushpull import grid_grad, grid_pull, grid_push
 from brainfm_tpu_torch.ops.resize import resize_spline, restrict_spline
 from brainfm_tpu_torch.ops.interp import nearest3d, trilinear3d
+from brainfm_tpu_torch.ops import groupnorm
 from brainfm_tpu_torch.ops.lut import lut_apply, lut_apply_plain
 from brainfm_tpu_torch.ops.warp import warp_labels, warp_volume
 from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
@@ -239,6 +249,20 @@ BANK = (192, 192, 192)
 # multiply-add contraction, so any difference is a fault; 1e-5 on O(1)
 # values leaves room for nothing but last-bit rounding
 LINEAR_TOL = 1e-5
+# K3 (chan_sums) sums millions of elements a row in fp32 in another order
+# than torch.sum: max error relative to the largest |sum|; K4 and K5 round
+# like their plain versions, operation for operation, and must be equal
+GN_SUMS_RTOL = 1e-5
+# K3-K5 at the flagship's shapes: the decoder's level-0 pair (f_maps and
+# 2 f_maps channels) and the served tensor, in these dtypes, each timing
+# over GN_REPS calls (the library's GroupNorm takes tens of ms here)
+GN_F_MAPS = 64
+GN_DTYPES = (("bf16", torch.bfloat16), ("f32", torch.float32))
+GN_REPS = 5
+# the groupnorm_reference phase: fp64 on the card against the CPU, the
+# whole gradient's relative L2 (cuDNN and K3 sum in other orders)
+GN_REF_SIZES = (32, 33)
+GN_REF_TOL = 1e-10
 # CPU replay of a GPU item: cuBLAS/cuDNN and the CPU sum fp32 products in
 # other orders; values are normalized to [0, 1] or O(1) targets
 REPLAY_TOL = 1e-3
@@ -377,11 +401,23 @@ JAX_SUMMARY_KEYS = ("primary_compile_s", "whole_volume_ms",
 SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "warp_nearest_i32": "brainfm_tpu_torch/csrc/warp.cu",
            "lut_gather_i32": "brainfm_tpu_torch/csrc/lut.cu",
-           "lut_gather_f32": "brainfm_tpu_torch/csrc/lut.cu"}
+           "lut_gather_f32": "brainfm_tpu_torch/csrc/lut.cu",
+           "chan_sums": "brainfm_tpu_torch/csrc/groupnorm.cu",
+           "chan_affine": "brainfm_tpu_torch/csrc/groupnorm.cu",
+           "chan_affine3": "brainfm_tpu_torch/csrc/groupnorm.cu"}
 REPLACES = {"warp_linear_f32": "brainfm_tpu/ops/pallas_warp_blocks.py:300",
             "warp_nearest_i32": "brainfm_tpu/ops/pallas_warp_blocks.py:300",
             "lut_gather_i32": "brainfm_tpu/ops/pallas_lut.py:53",
-            "lut_gather_f32": "brainfm_tpu/ops/pallas_lut.py:53"}
+            "lut_gather_f32": "brainfm_tpu/ops/pallas_lut.py:53",
+            # K3-K5 port jax.custom_vjp code, not Pallas: the sums of
+            # _fgn_stats, the apply of _fgn_fwd, the combine of _fgn_bwd
+            "chan_sums": "brainfm_tpu/models/unet3d.py:304",
+            "chan_affine": "brainfm_tpu/models/unet3d.py:341",
+            "chan_affine3": "brainfm_tpu/models/unet3d.py:383"}
+# K3 and K4 run in every forward of the model, K5 only in a backward pass
+GN_FORWARD = ("chan_sums", "chan_affine")
+GN_BACKWARD = ("chan_affine3",)
+GN_KERNELS = GN_FORWARD + GN_BACKWARD
 
 
 def emit(obj):
@@ -517,6 +553,9 @@ class Case(NamedTuple):
     library: Callable | None   # one PyTorch call of the same function
     nbytes: int             # the bound: bytes the function must move
     exact: bool
+    rtol: float = 0.0       # > 0: max error relative to the largest |want|
+    reps: int = 20          # calls per timing
+    info: dict | None = None   # shape, dtype, library call: for the record
 
 
 def linear_bytes(shape, grid, C) -> int:
@@ -531,18 +570,26 @@ def run_case(case):
     got = case.kernel()
     want = case.plain()
     torch.cuda.synchronize()
+    t = torch.promote_types(want.dtype, torch.float32)
+    err = float((got.to(t) - want.to(t)).abs().max())
+    rel = None
     if case.exact:
-        err = float((got.long() - want.long()).abs().max())
         ok = err == 0
+    elif case.rtol:
+        rel = err / max(float(want.to(t).abs().max()), 1e-30)
+        ok = rel <= case.rtol
     else:
-        err = float((got - want).abs().max())
         ok = err <= LINEAR_TOL
-    rec = {"phase": "kernel", "case": case.name, "max_abs_err": err,
-           "ms": time_ms(case.kernel),
-           "ms_cold": time_ms(case.kernel, cold=True),
-           "plain_ms": time_ms(case.plain),
+    del got, want
+    n = case.reps
+    rec = {"phase": "kernel", "case": case.name, **(case.info or {}),
+           "max_abs_err": err,
+           **({} if rel is None else {"max_rel_err": rel}),
+           "ms": time_ms(case.kernel, n),
+           "ms_cold": time_ms(case.kernel, n, cold=True),
+           "plain_ms": time_ms(case.plain, n),
            "library_ms": (None if case.library is None
-                          else time_ms(case.library)),
+                          else time_ms(case.library, n)),
            "bound_ms": case.nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes"}
     emit(rec)
@@ -754,7 +801,100 @@ def kernel_cases(scfg, dev) -> list:
     cases.append(lut_case("lut_gather_f32 K=256 C=4 dry run",
                           torch.rand((256, 4), generator=g, device=dev) * 200,
                           dbank))
-    return cases
+    return cases + gn_cases(scfg, dev)
+
+
+def _gn_names(parts, kinds):
+    return tuple(f"{fn} {d} {part}{suffix}" for d, _ in GN_DTYPES
+                 for part in parts for fn, suffix in kinds)
+
+
+GN_TRAIN_CASES = _gn_names(("pair enc", "pair z"),
+                           (("chan_sums", ""), ("chan_sums", " backward"),
+                            ("chan_affine", ""), ("chan_affine3", "")))
+GN_SERVE_CASES = _gn_names(("serve",), (("chan_sums", ""),
+                                        ("chan_affine", "")))
+
+
+def gn_cases(scfg, dev) -> list:
+    """K3-K5 at the flagship's shapes, bf16 and fp32: the decoder's
+    level-0 pair in the train step (S samples; enc GN_F_MAPS channels at
+    cfg.size, z twice the channels at half the extent: K3 forward and
+    backward, K4, K5) and the served SERVE_WIN x GN_F_MAPS tensor (K3, K4;
+    serving has no backward). The library call is the GroupNorm pass each
+    takes part in, on the same tensor (8 groups): `F.group_norm` forward
+    for K3 and K4, its backward through `torch.autograd.grad` for K3 on
+    (dy, x) and K5."""
+    g = torch.Generator(dev).manual_seed(2)
+    S, size = scfg.all_samples, tuple(scfg.size)
+    shapes = {"pair enc": (S, GN_F_MAPS, *size),
+              "pair z": (S, 2 * GN_F_MAPS, *(n // 2 for n in size)),
+              "serve": (1, GN_F_MAPS, *SERVE_WIN)}
+    cases = []
+    for dname, dtype in GN_DTYPES:
+        sdt = groupnorm.stats_dtype(dtype)
+        for part, shape in shapes.items():
+            N, C = shape[:2]
+            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+            w = torch.linspace(0.5, 1.5, C, device=dev, dtype=dtype)
+            b = torch.linspace(-0.2, 0.2, C, device=dev, dtype=dtype)
+            a2 = [torch.rand((N, C), generator=g, device=dev).to(sdt) + 0.5
+                  for _ in range(2)]
+            es, ss = x.element_size(), sdt.itemsize
+            nx, nc = x.numel() * es, N * C
+            info = {"shape": list(shape), "dtype": dname}
+            fwd = {**info, "library": "F.group_norm forward"}
+
+            def lib_fwd(x=x, w=w, b=b):
+                return F.group_norm(x, 8, w, b, 1e-5)
+
+            cases.append(Case(
+                f"chan_sums {dname} {part}", "chan_sums",
+                lambda x=x: groupnorm.chan_sums(x),
+                lambda x=x: groupnorm.chan_sums_plain(x), lib_fwd,
+                nx + 2 * nc * ss, exact=False, rtol=GN_SUMS_RTOL,
+                reps=GN_REPS, info=fwd))
+            if part != "serve":
+                dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+                PQR = [(torch.randn((N, C), generator=g, device=dev) * 0.1)
+                       .to(dtype) for _ in range(3)]
+                held = {}
+
+                def lib_bwd(x=x, w=w, b=b, dy=dy, held=held):
+                    if not held:
+                        ins = [t.detach().requires_grad_(True)
+                               for t in (x, w, b)]
+                        held["ins"] = ins
+                        held["y"] = F.group_norm(ins[0], 8, ins[1], ins[2],
+                                                 1e-5)
+                    return torch.autograd.grad(held["y"], held["ins"], dy,
+                                               retain_graph=True)[0]
+
+                bwd = {**info, "library": "F.group_norm backward "
+                                          "(torch.autograd.grad)"}
+                cases.append(Case(
+                    f"chan_sums {dname} {part} backward", "chan_sums",
+                    lambda x=x, dy=dy: groupnorm.chan_sums(dy, x),
+                    lambda x=x, dy=dy: groupnorm.chan_sums_plain(dy, x),
+                    lib_bwd, 2 * nx + 2 * nc * ss, exact=False,
+                    rtol=GN_SUMS_RTOL, reps=GN_REPS, info=bwd))
+            cases.append(Case(
+                f"chan_affine {dname} {part}", "chan_affine",
+                lambda x=x, a=a2: groupnorm.chan_affine(x, *a),
+                lambda x=x, a=a2: groupnorm.chan_affine_plain(x, *a),
+                lib_fwd, 2 * nx + 2 * nc * ss, exact=True, reps=GN_REPS,
+                info=fwd))
+            if part != "serve":
+                cases.append(Case(
+                    f"chan_affine3 {dname} {part}", "chan_affine3",
+                    lambda x=x, dy=dy, c=PQR: groupnorm.chan_affine3(dy, x,
+                                                                     *c),
+                    lambda x=x, dy=dy, c=PQR: groupnorm.chan_affine3_plain(
+                        dy, x, *c),
+                    lib_bwd, 3 * nx + 3 * nc * es, exact=True, reps=GN_REPS,
+                    info=bwd))
+    order = {n: i for i, n in enumerate(GN_TRAIN_CASES + GN_SERVE_CASES)}
+    return sorted(cases, key=lambda c: order[c.name])
 
 
 def atlas_grid(dev):
@@ -787,7 +927,7 @@ ENTRY_CASES = ("warp_linear_f32 C=10 dry run", "warp_nearest_i32 dry run",
 # the `kernels` line's key for each path's own cases
 PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
               "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES,
-              "entry_case": ENTRY_CASES}
+              "entry_case": ENTRY_CASES, "gn_serve_case": GN_SERVE_CASES}
 
 
 def check_kernels(scfg, dev):
@@ -873,6 +1013,55 @@ def check_slice_reference(cfg, dev):
           "model_tol": MODEL_TOL, "seg_agree_min": SEG_AGREE})
     if bad:
         raise AssertionError(f"GPU/CPU disagreement beyond tolerance: {bad}")
+
+
+def _unet_loss_grads(model, x, w):
+    """sum(model(x) * w) and its gradient by parameter name, on the CPU."""
+    model.zero_grad()
+    loss = (model(x) * w).sum()
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().cpu()
+                                  for k, p in model.named_parameters()}
+
+
+def check_groupnorm_reference(dev):
+    """A small UNet3D (f_maps 8, 4 levels, 2 samples) at fp64: the loss
+    and every gradient on the card, through K3-K5 and the pair conv,
+    against the CPU's plain versions, at GN_REF_SIZES (at 32^3 every
+    decoder level takes the pair; at 33^3 the last, 16 -> 33, does not);
+    then the same on the card with `phase_upconv` off (the plain decoder:
+    upsample, concat, fused GroupNorm). The whole gradient's relative L2
+    within GN_REF_TOL; K3-K5 launched."""
+    recs, bad = [], []
+    kernels.reset_launches()
+    for size in GN_REF_SIZES:
+        torch.manual_seed(size)
+        cpu = UNet3D(f_maps=8, num_levels=4).double()
+        x = torch.randn(2, 1, size, size, size, dtype=torch.float64)
+        w = torch.randn(2, 8, size, size, size, dtype=torch.float64)
+        want_l, want_g = _unet_loss_grads(cpu, x, w)
+        for pair in (True, False):
+            gpu = UNet3D(f_maps=8, num_levels=4,
+                         phase_upconv=pair).double().to(dev)
+            gpu.load_state_dict(cpu.state_dict())
+            loss, grads = _unet_loss_grads(gpu, x.to(dev), w.to(dev))
+            rec = {"size": size, "phase_upconv": pair,
+                   "loss_rel_err": abs(loss - want_l) / abs(want_l),
+                   "grad_rel_l2": _global_rel_l2(grads, want_g),
+                   "grad_rel_l2_max_tensor": max(
+                       _rel_l2(grads[k], want_g[k]) for k in want_g)}
+            recs.append(rec)
+            if not (rec["loss_rel_err"] <= GN_REF_TOL
+                    and rec["grad_rel_l2"] <= GN_REF_TOL):
+                bad.append(rec)
+    launches = dict(kernels.LAUNCHES)
+    if missed(launches, names=GN_KERNELS):
+        bad.append(f"missed a kernel: {launches}")
+    emit({"phase": "groupnorm_reference", "model": "UNet3D f_maps 8 L4, "
+          "fp64, 2 samples", "runs": recs, "tol": GN_REF_TOL,
+          "launches": launches})
+    if bad:
+        raise AssertionError(f"groupnorm_reference failed: {bad}")
 
 
 def write_mgz(path, vol, spacing=(1.0, 1.0, 1.0), mdc=np.eye(3),
@@ -1068,7 +1257,7 @@ def run_slice(cfg, dev, power):
         raise AssertionError(f"non-finite values in {bad}")
     k1 = launches["warp_linear_f32"] + launches["warp_nearest_i32"]
     k2 = launches["lut_gather_i32"] + launches["lut_gather_f32"]
-    if k1 < 2 or k2 < 3 or min(launches.values()) < 1:
+    if k1 < 2 or k2 < 3 or missed(launches, backward=False):
         raise AssertionError(f"path missed a kernel: {launches}")
     emit({"phase": "slice", "size": list(size), "bank": list(BANK),
           "samples": S, "tasks": list(cfg.tasks), "f_maps": int(cfg.f_maps),
@@ -1239,6 +1428,8 @@ def run_serve(cfg, state, dev, power, tmp):
         if v["nonfinite"] or not v["labels_in_table"] \
                 or v["k2_launches"] < 1:
             bad.append(f"volume {i}: {v}")
+    if missed(path_launches, backward=False, names=GN_KERNELS):
+        bad.append(f"served volumes missed a kernel: {path_launches}")
     if tuple(deformed.shape) != SERVE_WIN or not bool(
             torch.isfinite(deformed).all()) or atlas_k1 < 1:
         bad.append(f"atlas {tuple(deformed.shape)}, K1 launches {atlas_k1}")
@@ -1555,7 +1746,7 @@ def run_train(dev, power, tmp, cfg=None, bank_shape=BANK):
         bad.append("no parameter changed")
     if not all(files.values()):
         bad.append(f"missing outputs {files}")
-    if min(launches.values()) < 1:
+    if missed(launches):
         bad.append(f"path missed a kernel: {launches}")
     emit({"phase": "train", "size": list(scfg.size), "bank": list(bank_shape),
           "samples": scfg.all_samples, "f_maps": int(cfg.f_maps),
@@ -1742,7 +1933,8 @@ def run_stream(dev, power, tmp):
     if len(val) != 2 or not all(np.isfinite(v["loss_total"]) for v in val):
         bad.append(f"eval_only {val}")
     if launches["warp_linear_f32"] < 1 or launches["lut_gather_i32"] < 1 \
-            or launches["lut_gather_f32"] < 1:
+            or launches["lut_gather_f32"] < 1 \
+            or missed(launches, names=GN_KERNELS):
         bad.append(f"path missed a kernel: {launches}")
     emit({"phase": "stream", "extent": list(STREAM_EXTENT),
           "bank": list(BANK), "datasets": n_subjects,
@@ -1845,7 +2037,8 @@ def run_pathology(dev, power):
     # lookup or nearest warp; K1 warps each item's wall (and each lesion
     # file), K2 looks up each item's contrast
     if launches["warp_linear_f32"] < PATHOLOGY_ITEMS \
-            or launches["lut_gather_f32"] < PATHOLOGY_ITEMS:
+            or launches["lut_gather_f32"] < PATHOLOGY_ITEMS \
+            or missed(launches, names=GN_KERNELS):
         bad.append(f"path missed a kernel: {launches}")
     emit({"phase": "pathology", "size": list(scfg.size), "bank": list(BANK),
           "samples": scfg.all_samples, "tasks": list(cfg.tasks),
@@ -1980,9 +2173,18 @@ def check_variants_reference(dev):
         raise AssertionError(f"variants_reference failed: {bad}")
 
 
+def missed(launches, backward=True, names=None):
+    """The C functions of `names` (default: every kernel) that a path
+    launched no time; a path without a backward pass is not asked for K5
+    (chan_affine3), which runs only there."""
+    names = launches if names is None else names
+    return [k for k in names if launches[k] < 1
+            and (backward or k not in GN_BACKWARD)]
+
+
 def _kernel_check(launches, what):
     """Every kernel of the path launched at least once."""
-    return [] if min(launches.values()) >= 1 else [
+    return [] if not missed(launches) else [
         f"{what}: path missed a kernel: {launches}"]
 
 
@@ -2536,7 +2738,7 @@ def run_evaluate(dev, power, tmp, ckpt):
     if not scores["recon_ms_ssim_vs_bf"] > 0:
         bad.append(f"degenerate ms_ssim of out_T1 against its bias-field "
                    f"twin: {scores}")
-    for k in ("warp_linear_f32", "lut_gather_i32"):
+    for k in ("warp_linear_f32", "lut_gather_i32") + GN_FORWARD:
         if launches[k] < 1:
             bad.append(f"evaluate path missed {k}: {launches}")
     emit({"phase": "evaluate", "heads": EVAL_HEADS, "win": list(SERVE_WIN),
@@ -3102,7 +3304,8 @@ def run_multigpu(dev, power, root, tmp, stream_figs):
     if f"final step {n}" not in res["stdout"]:
         bad.append(res["stdout"][-1500:])
     if launches["warp_linear_f32"] < 1 or launches["lut_gather_i32"] < 1 \
-            or launches["lut_gather_f32"] < 1:
+            or launches["lut_gather_f32"] < 1 \
+            or missed(launches, names=GN_KERNELS):
         bad.append(f"path missed a kernel: {launches}")
     if not os.path.isdir(os.path.join(out, "ckp", f"ckpt_{n:06d}")):
         bad.append("no checkpoint")
@@ -3191,6 +3394,13 @@ def run_bench(power, figures):
     launches = {name: sum(rec[name] for stage in runs.values()
                           for rec in stage.values())
                 for name in kernels.LAUNCHES}
+    # the served volume and the tiled pass run the model's forward, the
+    # train step its backward too
+    for stage, backward in (("primary", False), ("tiled", False),
+                            ("train_step", True)):
+        for key, rec in runs.get(stage, {}).items():
+            if missed(rec, backward, names=GN_KERNELS):
+                bad.append(f"{stage} {key} missed a kernel: {rec}")
     gen = runs.get("generator", {}).get("generator_ms_per_item", {})
     n = gen.get("calls", 0)
     if not (n > 0 and gen["warp_linear_f32"] == n
@@ -3210,8 +3420,8 @@ def run_bench(power, figures):
 
 def run_entry(dev, power):
     """entry()'s fn on the card against the CPU, timed, then
-    dryrun_multichip(1) on one NCCL rank. Returns the K1 and K2 launches
-    of the dry run's synthesis."""
+    dryrun_multichip(1) on one NCCL rank. Returns the kernel launches on
+    the dry run's rank (its steps and its synthesis)."""
     from brainfm_tpu_torch import entry as port_entry
 
     gc.collect()
@@ -3273,7 +3483,7 @@ def run_entry(dev, power):
         bad.append(f"FSDP loss {fsdp_rel} from the data-parallel one")
     launches = {k: sum(r[k] for r in res["launches_by_rank"])
                 for k in kernels.LAUNCHES}
-    if min(launches.values()) < 1:
+    if missed(launches):
         bad.append(f"path missed a kernel: {launches}")
     emit({"phase": "entry", "model": "joint 8-task UNet3D f64 L6, zero "
           "parameters", "x": x_shape, "amp": "bf16",
@@ -3449,7 +3659,8 @@ def run_orbax(dev, power):
     if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()):
         bad.append("flagship: outputs not finite")
     launches = dict(kernels.LAUNCHES)
-    if launches["lut_gather_i32"] < 1:
+    if launches["lut_gather_i32"] < 1 or missed(
+            launches, backward=False, names=GN_KERNELS):
         bad.append(f"path missed a kernel: {launches}")
     del inf, out, vol
     gc.collect()
@@ -3695,6 +3906,8 @@ def main():
     lap("kernel")
     check_slice_reference(cfg, dev)
     lap("slice_reference")
+    check_groupnorm_reference(dev)
+    lap("groupnorm_reference")
     slice_launches, state, slice_item_ms = run_slice(cfg, dev, power)
     lap("slice")
     # the slice's weights, served by the evaluate phase as a .pth

@@ -40,6 +40,11 @@ VARIANT_FIT and TWOSTAGE_FIT.
     python3 scripts/profile_torch_slice.py --train      # training only
     python3 scripts/profile_torch_slice.py --variants   # the variants' fit
 
+`--no_phase_upconv` runs every model above with the cfg's
+`phase_upconv: false`: the decoders upsample and concatenate instead of
+taking the JAX package's pair form (models/unet3d.py `Decoder`), the
+package's own A/B (printed first, as the `settings` line).
+
 Chrome traces go to outs/profile_torch_slice/ (git-ignored).
 """
 
@@ -72,9 +77,10 @@ from brainfm_tpu_torch.train import (TrainState, build_optimizer,  # noqa: E402
                                      make_batch, make_train_step)
 from brainfm_tpu_torch.utils.nifti import save_nifti  # noqa: E402
 
-# kernel names of brainfm_tpu_torch/csrc
+# kernel names of brainfm_tpu_torch/csrc (K1, K2; K3-K5 of groupnorm.cu)
+GN_OWN = ("sums_kernel", "sums_finish", "affine_kernel", "affine3_kernel")
 OWN = ("warp_linear_kernel", "warp_nearest_kernel", "lut_row_kernel",
-       "lut_word_kernel", "lut_scalar_kernel")
+       "lut_word_kernel", "lut_scalar_kernel") + GN_OWN
 TOP = 15
 
 
@@ -86,7 +92,10 @@ def _device_us(evt) -> float:
 
 
 # device-time families of a train step, by kernel name (first match)
-FAMILIES = (("groupnorm_fwd", ("RowwiseMoments", "ComputeFusedParams")),
+FAMILIES = (("gn_sums", ("sums_kernel", "sums_finish")),
+            ("gn_affine", ("affine_kernel",)),
+            ("gn_affine3", ("affine3_kernel",)),
+            ("groupnorm_fwd", ("RowwiseMoments", "ComputeFusedParams")),
             ("groupnorm_bwd", ("ComputeInternalGradients",
                                "ComputeBackwardFusedParams", "GammaBeta",
                                "GroupNormBackward")),
@@ -157,13 +166,16 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda")
     print(chip_smoke.gpu_name_power(), flush=True)
+    phase_upconv = "--no_phase_upconv" not in sys.argv[1:]
+    print(json.dumps({"phase": "settings", "phase_upconv": phase_upconv}),
+          flush=True)
     if "--train" in sys.argv[1:]:
-        profile_train(dev, out_dir)
+        profile_train(dev, out_dir, phase_upconv)
         return 0
     if "--variants" in sys.argv[1:]:
-        fit_variants(dev)
+        fit_variants(dev, phase_upconv)
         return 0
-    cfg = chip_smoke.flagship_cfg()
+    cfg = flagship_cfg(phase_upconv)
     torch.manual_seed(0)
     cfg, model = build_model(cfg, device=dev)
     model.eval()
@@ -190,8 +202,14 @@ def main():
     breakdown("forward", forward, out_dir)
     profile_serve(cfg, model.state_dict(), dev, out_dir)
     del model, held
-    profile_train(dev, out_dir)
+    profile_train(dev, out_dir, phase_upconv)
     return 0
+
+
+def flagship_cfg(phase_upconv):
+    cfg = chip_smoke.flagship_cfg()
+    cfg.phase_upconv = phase_upconv
+    return cfg
 
 
 def _set_remat(model, remat):
@@ -219,7 +237,8 @@ def fit_train(cfg, model, weight_dict, loss_fn, batch, dev,
                                state.optimizer, sample_accum=accum,
                                critic=critic, critic_image_key="T1")
         rec = {"phase": "fit_train", "model": label, "remat": remat,
-               "grad_accum_samples": accum}
+               "grad_accum_samples": accum,
+               "phase_upconv": bool(cfg.get("phase_upconv", True))}
         try:
             state, _ = step(state, batch, 1e-4, 0.0)
             torch.cuda.synchronize()
@@ -246,7 +265,7 @@ def fit_train(cfg, model, weight_dict, loss_fn, batch, dev,
     return chosen
 
 
-def fit_variants(dev):
+def fit_variants(dev, phase_upconv=True):
     """fit_train at VARIANT_SETTINGS for each of chip_smoke.VARIANTS and
     the two-stage pair, on a flagship item of its config (160^3 from a
     192^3 bank); prints the chosen (remat, accumulation) of each."""
@@ -254,7 +273,9 @@ def fit_variants(dev):
     for name in chip_smoke.VARIANTS + ("twostage",):
         build = build_inpaint_model if name == "twostage" else build_model
         torch.manual_seed(0)
-        cfg, model = build(chip_smoke.variant_cfg(name), device=dev)
+        vcfg = chip_smoke.variant_cfg(name)
+        vcfg.phase_upconv = phase_upconv
+        cfg, model = build(vcfg, device=dev)
         _, weight_dict, loss_fn = make_criterion(cfg)
         critic, _ = build_critic_from_cfg(cfg, device=dev)
         scfg = SynthStatic.from_cfg(cfg)
@@ -273,9 +294,9 @@ def fit_variants(dev):
     return chosen
 
 
-def profile_train(dev, out_dir):
+def profile_train(dev, out_dir, phase_upconv=True):
     """fit_train, then one profiled step at the chosen setting."""
-    cfg = chip_smoke.flagship_cfg()
+    cfg = flagship_cfg(phase_upconv)
     torch.manual_seed(0)
     cfg, model = build_model(cfg, device=dev)
     _, weight_dict, loss_fn = make_criterion(cfg)

@@ -221,10 +221,13 @@ def test_bench_shapes_and_configs_are_the_root_bench_literals():
 
 def test_roofline_counts_every_convolution_of_a_unet():
     """2 * k^3 * Cin * Cout per output voxel of every Conv3d of UNet3D
-    (f_maps 8, 3 levels, 32^3); the bench's smoke model (the fused heads
-    too) counts the same on the meta device as on the CPU."""
+    (f_maps 8, 3 levels, 32^3), each Conv3d called as a module on the
+    plain decoder path (`phase_upconv` off); with the pair path on, the
+    first conv of each decoder is the phase pair conv, which counts the
+    same FLOPs; the bench's smoke model (the fused heads too) counts the
+    same on the meta device as on the CPU."""
     torch.manual_seed(0)
-    model = UNet3D(f_maps=8, num_levels=3)
+    model = UNet3D(f_maps=8, num_levels=3, phase_upconv=False)
     want = []
 
     def hook(mod, inp, out):
@@ -235,10 +238,16 @@ def test_roofline_counts_every_convolution_of_a_unet():
     for m in model.modules():
         if isinstance(m, torch.nn.Conv3d):
             m.register_forward_hook(hook)
-    total, ops = roofline.forward_flops(model, torch.randn(1, 1, 32, 32, 32))
+    x = torch.randn(1, 1, 32, 32, 32)
+    total, ops = roofline.forward_flops(model, x)
     assert len(want) == 10   # 2 in each of 3 encoders and 2 decoders
     assert total == sum(want)
     assert ops == {"aten.convolution": total}
+    pair = UNet3D(f_maps=8, num_levels=3)
+    pair.load_state_dict(model.state_dict())
+    ptotal, pops = roofline.forward_flops(pair, x)
+    assert ptotal == total
+    assert set(pops) == {"aten.convolution", "brainfm.phase_pair_conv"}
 
     shape = bench.SHAPES["smoke"]
     cfg = bench.model_cfg(bench.INFER_CFG, shape, shape["win"])

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from brainfm_tpu_torch.ops import interp, lut, warp
+from brainfm_tpu_torch import kernels
+from brainfm_tpu_torch.ops import groupnorm, interp, lut, warp
 
 pytestmark = pytest.mark.cuda
 
@@ -274,3 +275,169 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         lut.lut_apply(torch.zeros(5, device=dev, dtype=torch.int64),
                       torch.zeros(3, device=dev, dtype=torch.int32))
+
+
+# K3-K5 (csrc/groupnorm.cu). K3 sums in another order than its plain
+# version: within these multiples of sum|u * v| (fp32 accumulators for
+# bf16 and fp32 inputs, fp64 for fp64); K4 and K5 round like their plain
+# versions, operation for operation: expect equality.
+SUMS_RTOL = {torch.bfloat16: 1e-5, torch.float32: 1e-5, torch.float64: 1e-13}
+GN_DTYPES = [torch.bfloat16, torch.float32, torch.float64]
+# (N, C, spatial): 16-B rows (vector path), odd rows (scalar path), rows
+# split over many blocks, one channel, the 2-D UNet's NCHW
+GN_SHAPES = [(2, 16, (8, 8, 8)), (1, 5, (7, 9, 11)), (4, 3, (96, 80, 72)),
+             (1, 1, (33, 32, 31)), (2, 24, (20, 24))]
+
+
+def _gn_input(shape, dtype, dev, seed, shift=0.5):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g, dtype=torch.float64)
+            + shift).to(dtype).to(dev)
+
+
+def _assert_sums(got, u, v):
+    want = groupnorm.chan_sums_plain(u, v)
+    vv = u if v is None else v
+    dims = tuple(range(2, u.dim()))
+    mag = torch.stack([u.double().abs().sum(dims),
+                       (u.double() * vv.double()).abs().sum(dims)])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= SUMS_RTOL[u.dtype] * (mag.to(err.device) + 1))
+                .all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", GN_DTYPES)
+@pytest.mark.parametrize("N,C,spatial", GN_SHAPES)
+def test_chan_sums_matches_plain(dev, N, C, spatial, dtype):
+    u = _gn_input((N, C, *spatial), dtype, dev, 1)
+    v = _gn_input((N, C, *spatial), dtype, dev, 2, shift=-0.2)
+    for vv in (None, v):
+        before = kernels.LAUNCHES["chan_sums"]
+        got = groupnorm.chan_sums(u, vv)
+        assert kernels.LAUNCHES["chan_sums"] == before + 1
+        _assert_sums(got, u, vv)
+        # two-stage and atomic-free: bitwise the same on a second run
+        assert torch.equal(got, groupnorm.chan_sums(u, vv))
+
+
+@pytest.mark.parametrize("dtype", GN_DTYPES)
+@pytest.mark.parametrize("N,C,spatial", GN_SHAPES)
+def test_chan_affines_match_plain_exactly(dev, N, C, spatial, dtype):
+    x = _gn_input((N, C, *spatial), dtype, dev, 3)
+    dy = _gn_input((N, C, *spatial), dtype, dev, 4, shift=0.0)
+    sdt = groupnorm.stats_dtype(dtype)
+    a = _gn_input((N, C), sdt, dev, 5)
+    b = _gn_input((N, C), sdt, dev, 6)
+    y = groupnorm.chan_affine(x, a, b)
+    assert y.dtype == dtype and y.is_contiguous()
+    assert torch.equal(y, groupnorm.chan_affine_plain(x, a, b))
+    P, Q, R = (_gn_input((N, C), dtype, dev, 7 + i) * 0.1 for i in range(3))
+    dx = groupnorm.chan_affine3(dy, x, P, Q, R)
+    assert torch.equal(dx, groupnorm.chan_affine3_plain(dy, x, P, Q, R))
+
+
+@pytest.mark.parametrize("fn", ["sums", "affine", "affine3"])
+def test_chan_kernels_on_misaligned_views(dev, fn):
+    """Rows of 8 bf16 elements (16 B) starting one element past a 16-B
+    boundary take the one-element path."""
+    shape = (2, 4, 8, 4, 4)
+    x = _offset_view(_gn_input(shape, torch.bfloat16, dev, 8))
+    dy = _offset_view(_gn_input(shape, torch.bfloat16, dev, 9))
+    if fn == "sums":
+        _assert_sums(groupnorm.chan_sums(dy, x), dy, x)
+    elif fn == "affine":
+        a, b = (_gn_input((2, 4), torch.float32, dev, s) for s in (1, 2))
+        assert torch.equal(groupnorm.chan_affine(x, a, b),
+                           groupnorm.chan_affine_plain(x, a, b))
+    else:
+        P, Q, R = (_gn_input((2, 4), torch.bfloat16, dev, s)
+                   for s in (1, 2, 3))
+        assert torch.equal(groupnorm.chan_affine3(dy, x, P, Q, R),
+                           groupnorm.chan_affine3_plain(dy, x, P, Q, R))
+
+
+def test_chan_kernels_refuse_other_strides(dev):
+    x = torch.zeros(2, 8, 4, 4, 4, device=dev)
+    a = torch.zeros(2, 8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm.chan_sums(x.to(memory_format=torch.channels_last_3d))
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm.chan_affine(x[:, :, ::2], a, a)
+    with pytest.raises(TypeError):
+        groupnorm.chan_sums(x.half())
+    with pytest.raises(ValueError):
+        groupnorm.chan_affine(x, a.double(), a.double())
+    with pytest.raises(ValueError):
+        groupnorm.chan_sums(x, x.cpu())
+
+
+def _rel(a, b):
+    return float((a.double().cpu() - b.double().cpu()).norm()
+                 / b.double().cpu().norm().clamp(min=1e-300))
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_group_norms_on_the_card_match_the_cpu_fp64(dev, pair):
+    """The autograd Functions end to end at fp64: values 1e-12 and
+    gradients 1e-10 relative (K3 sums in another order)."""
+    rng = np.random.default_rng(12)
+    C = 24
+    shapes = [(2, 8, 12, 10, 8), (2, 16, 6, 5, 4)] if pair \
+        else [(2, C, 11, 9, 7)]
+    ins = [torch.from_numpy(rng.standard_normal(s) + 0.3) for s in shapes]
+    gs = [torch.from_numpy(rng.standard_normal(s)) for s in shapes]
+    sc = torch.from_numpy(rng.standard_normal(C))
+    bi = torch.from_numpy(rng.standard_normal(C))
+    fn = groupnorm.pair_group_norm if pair else groupnorm.fused_group_norm
+    res = []
+    for d in ("cpu", dev):
+        args = [t.to(d).requires_grad_(True) for t in (*ins, sc, bi)]
+        out = fn(*args, 8)
+        out = out if pair else (out,)
+        grads = torch.autograd.grad(out, args, [g.to(d) for g in gs])
+        res.append(([o.detach() for o in out], grads))
+    for a, b in zip(res[1][0], res[0][0]):
+        assert _rel(a, b) <= 1e-12
+    for a, b in zip(res[1][1], res[0][1]):
+        assert _rel(a, b) <= 1e-10
+
+
+def test_bf16_group_norm_on_the_card_matches_the_cpu(dev):
+    """bf16 under fp32 coefficients that differ from the CPU's in their
+    last bits (K3's summation order): values within one bf16 ulp, or 1e-5
+    where the fp32 value near 0 rounds to neighbours finer than that;
+    dtypes kept."""
+    x = _gn_input((4, 64, 20, 20, 20), torch.bfloat16, "cpu", 13)
+    sc = torch.linspace(0.5, 1.5, 64)
+    bi = torch.linspace(-0.2, 0.2, 64)
+    want = groupnorm.fused_group_norm(x, sc, bi, 8)
+    got = groupnorm.fused_group_norm(x.to(dev), sc.to(dev), bi.to(dev), 8)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** -7 * torch.maximum(got.float().cpu().abs(),
+                                    want.float().abs())
+    err = (got.float().cpu() - want.float()).abs()
+    assert bool((err <= ulp + 1e-5).all()), float((err - ulp).max())
+
+
+def test_phase_pair_conv_and_unet_on_the_card_match_the_cpu(dev):
+    """A small UNet3D whose every decoder level takes the pair, fp64 loss
+    and gradients on the card (K3-K5, the pair conv) against the CPU."""
+    from brainfm_tpu_torch.models.unet3d import UNet3D
+
+    torch.manual_seed(0)
+    cpu = UNet3D(f_maps=8, num_levels=3).double()
+    gpu = UNet3D(f_maps=8, num_levels=3).double().to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 1, 24, 24, 24, dtype=torch.float64)
+    w = torch.randn(2, 8, 24, 24, 24, dtype=torch.float64)
+    kernels.reset_launches()
+    lg = (gpu(x.to(dev)) * w.to(dev)).sum()
+    lg.backward()
+    lc = (cpu(x) * w).sum()
+    lc.backward()
+    assert abs(float(lg) - float(lc)) <= 1e-10 * abs(float(lc))
+    for (k, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        assert _rel(a.grad, b.grad) <= 1e-9, k
+    for fn in ("chan_sums", "chan_affine", "chan_affine3"):
+        assert kernels.LAUNCHES[fn] > 0, fn

@@ -2,9 +2,10 @@
 the joint config cut to f_maps 8, at num_levels 5 and 6, on an even (32^3)
 and an odd (33^3) volume. The JAX model's params, converted by
 from_jax_params, drive the port; every head output and every feature level
-must agree. The JAX side runs its TPU forms (phase-folded decoder conv,
-fused GroupNorm); the port runs the plain forms they are proven equal to
-(tests/test_phase_upconv.py)."""
+must agree. Both sides run the JAX package's decoder forms (the
+phase-folded pair conv and pair GroupNorm, the fused GroupNorm), the port
+its twins of ops/groupnorm.py and models/unet3d.py
+(tests/test_torch_groupnorm.py)."""
 
 import os
 
