@@ -27,16 +27,17 @@ keeps one convolution output per SingleConv, the pair's included.
 
 Inside `parallel.spatial.space_scope` (the port's counterpart of the JAX
 package's GSPMD spatial sharding) the 3-D network runs on D slabs: each
-conv takes a halo from its neighbours (`space_conv`), GroupNorm reduces
-its statistics over the slabs (`space_group_norm`), max-pool and the
+conv takes a halo from its neighbours (`space_conv`), GroupNorm is
+`fused_group_norm` with the scope's process group (one all_reduce of K3's
+(2, N, C) sums each way, the output in the slab's dtype, as the JAX
+SingleConv keeps `_fused_groupnorm` under sharding), max-pool and the
 nearest upsample stay local while the slabs are aligned, and the deep
 levels that do not split evenly (`level_layout`, the rule of the JAX
 package's `_replicate_if_degenerate`) run whole on every rank: their
 input is gathered (`gather_space`) and their output sliced back where a
 sharded level reads it (`slice_space`). Inside a scope the pair is off at
-every level and the slabs' GroupNorm is `space_group_norm`, as the JAX
-package turns the pair off under space sharding (`_space_sharded`).
-Outside a scope nothing changes.
+every level, as the JAX package turns it off under space sharding
+(`_space_sharded`). Outside a scope nothing changes.
 """
 
 from __future__ import annotations
@@ -51,8 +52,7 @@ from torch.utils.flop_counter import conv_flop_count, register_flop_formula
 from ..ops.groupnorm import (fused_group_norm, num_groups_of,
                              pair_group_norm)
 from ..parallel.spatial import (current_space, gather_space, level_layout,
-                                slice_space, space_conv, space_group_norm,
-                                use_scope, whole)
+                                slice_space, space_conv, use_scope, whole)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -167,8 +167,8 @@ class SingleConv(nn.Module):
     nearest_up2(z)]), never materialized (the JAX SingleConv's): GroupNorm
     is `pair_group_norm`, pointwise layers apply to both parts and the conv
     is `phase_pair_conv`, whose output is an ordinary fine-grid tensor.
-    `groupnorm` (an nn.GroupNorm) holds the GroupNorm's parameters; outside
-    a space scope `fused_group_norm` computes it."""
+    `groupnorm` (an nn.GroupNorm) holds the GroupNorm's parameters;
+    `fused_group_norm` computes it, over the slabs in a space scope."""
 
     def __init__(self, in_channels, out_channels, order="gcl", num_groups=8,
                  kernel_size=3, is_3d=True):
@@ -196,14 +196,13 @@ class SingleConv(nn.Module):
             pair = isinstance(x, tuple)
             if c == "g":
                 gn = self.groupnorm
-                if sc is not None:
-                    x = space_group_norm(x, gn, sc)
-                elif pair:
+                if pair:
                     x = pair_group_norm(*x, gn.weight, gn.bias,
                                         gn.num_groups, gn.eps)
                 else:
                     x = fused_group_norm(x, gn.weight, gn.bias,
-                                         gn.num_groups, gn.eps)
+                                         gn.num_groups, gn.eps,
+                                         None if sc is None else sc.group)
             elif c == "c":
                 if pair:
                     x = phase_pair_conv(*x, self.conv.weight)

@@ -12,6 +12,12 @@ copy of the activation). Only x (in its own dtype), the scale and the
 (B, G) statistics are saved for the backward. The scale and bias are used
 in the statistics type; autocast does not touch these functions.
 
+`fused_group_norm(..., group=)` is the same function on one rank's D
+slab of a volume split into equal slabs over a process group (the space
+scope of parallel/spatial.py, where the JAX SingleConv keeps
+`_fused_groupnorm` under GSPMD): one all_reduce of K3's (2, N, C) sums in
+the forward and one in the backward, nothing full-size exchanged.
+
 The pair form normalizes the virtual concat([enc, nearest_up2(z)]) without
 materializing it: the coarse part's sums carry the 8x repeat weight, and
 its backward the 16 * D2 and 8 * D1 terms.
@@ -37,6 +43,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 from .. import kernels
@@ -230,27 +237,58 @@ def _affine_coeffs(gmean, inv, scale, bias, gsize):
     return a.contiguous(), b.contiguous()
 
 
-def group_stats(x, num_groups: int, eps: float = 1e-5):
+def _sum_over(group, s, extents=()):
+    """The (2, N, C) sums `s` summed over the ranks of `group` in one
+    all_reduce of a fresh contiguous tensor. `extents` (this rank's slab
+    shape) ride along: every rank's must be the same, so that each slab
+    counts as many voxels (`level_layout` makes it so); the check is
+    asynchronous on the card."""
+    mine = s.new_tensor(extents)
+    flat = torch.cat([s.reshape(-1), mine])
+    dist.all_reduce(flat, group=group)
+    if extents:
+        torch._assert_async(
+            (flat[s.numel():] == mine * dist.get_world_size(group)).all(),
+            f"slabs of unequal extents: this rank's {tuple(extents)}")
+    return flat[:s.numel()].view(s.shape)
+
+
+def _slab_count(x, group):
+    """Elements of one channel over every rank's slab of x (N, C, ...)."""
+    n = 1 if group is None else dist.get_world_size(group)
+    return math.prod(x.shape[2:]) * n
+
+
+def group_stats(x, num_groups: int, eps: float = 1e-5, group=None):
     """`_fgn_stats`: (gmean, inv) of shape (B, groups) in the statistics
-    type, from one K3 pass over x (N, C, ...)."""
+    type, from one K3 pass over x (N, C, ...); with a process `group`,
+    over every rank's equal slab of x (the sums summed over the group)."""
     C = x.shape[1]
     groups = num_groups_of(C, num_groups)
     s = chan_sums(x)
+    if group is not None:
+        s = _sum_over(group, s, x.shape[2:])
     return _group_stats(s[0], s[1], groups,
-                        math.prod(x.shape[2:]) * (C // groups), eps)
+                        _slab_count(x, group) * (C // groups), eps)
 
 
 class _FusedGroupNorm(torch.autograd.Function):
+    """`_fused_groupnorm`; with a process `group`, on this rank's slab of
+    a volume split into equal slabs over the group: the statistics are the
+    whole volume's (K3's sums summed over the group), the scale's and
+    bias's gradients this slab's share (the caller sums them over the
+    ranks), dx the whole volume's (the backward's sums summed again)."""
+
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps):
+    def forward(ctx, x, scale, bias, num_groups, eps, group):
         C = x.shape[1]
         groups = num_groups_of(C, num_groups)
         sdt = stats_dtype(x.dtype)
-        gmean, inv = group_stats(x, num_groups, eps)
+        gmean, inv = group_stats(x, num_groups, eps, group)
         a, b = _affine_coeffs(gmean, inv, scale.to(sdt), bias.to(sdt),
                               C // groups)
         ctx.save_for_backward(x, scale, gmean, inv)
-        ctx.groups = groups
+        ctx.groups, ctx.group = groups, group
         return chan_affine(x, a, b)
 
     @staticmethod
@@ -260,18 +298,22 @@ class _FusedGroupNorm(torch.autograd.Function):
         B, C = x.shape[:2]
         gsize = C // groups
         sdt = stats_dtype(x.dtype)
-        N = math.prod(x.shape[2:]) * gsize
+        N = _slab_count(x, ctx.group) * gsize
         s32 = scale.to(sdt)[None]
+        gm = gmean.repeat_interleave(gsize, -1)
+        invc = inv.repeat_interleave(gsize, -1)
         s = chan_sums(dy, x)
-        s_dy, s_dyx = s[0], s[1]
-        ctr = s_dyx - gmean.repeat_interleave(gsize, -1) * s_dy
-        dscale = (ctr * inv.repeat_interleave(gsize, -1)).sum(0)
+        s_dy, ctr = s[0], s[1] - gm * s[0]
+        dscale = (ctr * invc).sum(0)
         dbias = s_dy.sum(0)
         dx = None
         if ctx.needs_input_grad[0]:
+            if ctx.group is not None:
+                s = _sum_over(ctx.group, s)
+                s_dy, ctr = s[0], s[1] - gm * s[0]
             m1 = (s_dy * s32).reshape(B, groups, gsize).sum(-1) / N
             m2 = (ctr * s32).reshape(B, groups, gsize).sum(-1) * inv / N
-            P = inv.repeat_interleave(gsize, -1) * s32
+            P = invc * s32
             Q = (-(inv * inv * m2)).repeat_interleave(gsize, -1)
             R = (-inv * m1 + gmean * inv * inv * m2).repeat_interleave(
                 gsize, -1)
@@ -279,14 +321,18 @@ class _FusedGroupNorm(torch.autograd.Function):
             dx = chan_affine3(dy, x, P.to(dt).contiguous(),
                               Q.to(dt).contiguous(), R.to(dt).contiguous())
         return (dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None,
-                None)
+                None, None)
 
 
-def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5):
+def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
+                     group=None):
     """`_fused_groupnorm`: GroupNorm of x (N, C, ...) with per-channel
     `scale` and `bias`, output in x's dtype, analytic backward (K3, K4 in
-    the forward; K3, K5 in the backward)."""
-    return _FusedGroupNorm.apply(x, scale, bias, num_groups, eps)
+    the forward; K3, K5 in the backward). With a process `group`, x is
+    this rank's slab of a volume split into equal slabs over the group:
+    one all_reduce of the (2, N, C) sums each way, nothing full-size
+    exchanged; the scale's and bias's gradients are the slab's share."""
+    return _FusedGroupNorm.apply(x, scale, bias, num_groups, eps, group)
 
 
 class _PairGroupNorm(torch.autograd.Function):

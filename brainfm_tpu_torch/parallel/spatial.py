@@ -10,8 +10,9 @@ through the host and takes all_gather and all_reduce on them).
 `space_scope(mesh)` is the port's counterpart of JAX's ambient
 `jax.sharding.set_mesh`: inside it the UNet (models/unet3d.py) and its
 heads (models/heads.py) run on the local slab, with halo exchanges before
-their convs, GroupNorm statistics reduced over the slabs, and the deep
-levels that do not split evenly run whole on every rank. `whole()` leaves
+their convs, GroupNorm statistics summed over the slabs (the scope's
+group handed to ops/groupnorm.py::fused_group_norm), and the deep levels
+that do not split evenly run whole on every rank. `whole()` leaves
 the scope for a block that runs whole.
 
 Gradients: a loss computed whole on every rank (after `gather_space`) is
@@ -79,27 +80,6 @@ def halo_exchange(local, halo: int, group, dim: int = 2):
     'SAME' zero padding at the volume's ends). Differentiable: each halo's
     gradient goes back to the rank that owns it."""
     return _HaloExchange.apply(local, int(halo), group, dim)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-def all_reduce_sum(x, group):
-    """SUM over the group, differentiable (the backward sums the
-    gradients of every rank's copy)."""
-    return _AllReduceSum.apply(x, group)
 
 
 class _GatherSpace(torch.autograd.Function):
@@ -211,26 +191,6 @@ def level_layout(extent: int, n: int, num_levels: int) -> list:
             e //= 2
         out.append(bool(prev_ok and e % n == 0 and e // n >= 4))
     return out
-
-
-def space_group_norm(x, gn, scope):
-    """nn.GroupNorm `gn` on a slab with the statistics of the whole
-    volume: per (sample, group) sums over the slab in fp32 (fp64 for an
-    fp64 input), reduced over the slabs, two passes (mean, then the
-    centred squares)."""
-    N, C = x.shape[:2]
-    G = gn.num_groups
-    xf = x if x.dtype == torch.float64 else x.float()
-    xg = xf.reshape(N, G, -1)
-    cnt = xg.shape[-1] * scope.n
-    mean = all_reduce_sum(xg.sum(-1), scope.group) / cnt
-    d = xg - mean[..., None]
-    var = all_reduce_sum((d * d).sum(-1), scope.group) / cnt
-    y = (d * torch.rsqrt(var + gn.eps)[..., None]).reshape(xf.shape)
-    if gn.affine:
-        shape = (1, C) + (1,) * (x.dim() - 2)
-        y = y * gn.weight.reshape(shape) + gn.bias.reshape(shape)
-    return y
 
 
 def space_conv(conv, x, scope):

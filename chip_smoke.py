@@ -124,15 +124,19 @@ Phases, one JSON line each:
                refuses two ranks on one device; the line names the
                backend): the L6 f_maps-16 joint model's fp64 step on
                48^3 split in two D slabs against the same step unsharded
-               (loss 1e-12, gradient rel-L2 1e-9, TF32 off); one flagship
+               (loss 1e-12, gradient rel-L2 1e-9, TF32 off), launching K4
+               once per GroupNorm and K3 and K5; one flagship
                item per rank by per-rank synthesis, bitwise this
                process's serial batch of the same per-item generators,
                with K1 and K2 launches on each rank; the slice's L6
                f_maps-64 weights serving a SERVE_WIN head over space=2 in
                bf16 (timed, each rank's peak memory, beside one rank
-               alone and that rank's noise floor), then a
-               MGPU_EXACT_WIN head at fp64 against one rank alone
-               (MODEL_TOL, SEG_AGREE).
+               alone and that rank's noise floor; K3 and K4 on each rank),
+               then a MGPU_EXACT_WIN head at fp64 against one rank alone
+               (MODEL_TOL, SEG_AGREE); a bf16 slab GroupNorm of the served
+               tensor over the two ranks against the unsharded one (one
+               bf16 ulp or GN_BF16_ATOL), K3 on the slab against its plain
+               version.
  22. multigpu - the training CLI with the flagship configs on the stream
                phase's data root, launched as torchrun launches one rank
                (RANK=0 WORLD_SIZE=1) with --mesh 1 --fsdp on NCCL:
@@ -253,6 +257,10 @@ LINEAR_TOL = 1e-5
 # than torch.sum: max error relative to the largest |sum|; K4 and K5 round
 # like their plain versions, operation for operation, and must be equal
 GN_SUMS_RTOL = 1e-5
+# a bf16 GroupNorm against another whose fp32 statistics differ in their
+# last bits (another summation order): within one bf16 ulp, or this much
+# where the fp32 value near 0 rounds to neighbours finer than that
+GN_BF16_ATOL = 1e-5
 # K3-K5 at the flagship's shapes: the decoder's level-0 pair (f_maps and
 # 2 f_maps channels) and the served tensor, in these dtypes, each timing
 # over GN_REPS calls (the library's GroupNorm takes tens of ms here)
@@ -814,6 +822,9 @@ GN_TRAIN_CASES = _gn_names(("pair enc", "pair z"),
                             ("chan_affine", ""), ("chan_affine3", "")))
 GN_SERVE_CASES = _gn_names(("serve",), (("chan_sums", ""),
                                         ("chan_affine", "")))
+# one rank's D slab of the served tensor over MGPU_WORLD ranks (the
+# multigpu_reference's sharded serving), bf16 as served
+GN_SLAB_CASES = ("chan_sums bf16 serve slab", "chan_affine bf16 serve slab")
 
 
 def gn_cases(scfg, dev) -> list:
@@ -821,19 +832,24 @@ def gn_cases(scfg, dev) -> list:
     level-0 pair in the train step (S samples; enc GN_F_MAPS channels at
     cfg.size, z twice the channels at half the extent: K3 forward and
     backward, K4, K5) and the served SERVE_WIN x GN_F_MAPS tensor (K3, K4;
-    serving has no backward). The library call is the GroupNorm pass each
-    takes part in, on the same tensor (8 groups): `F.group_norm` forward
-    for K3 and K4, its backward through `torch.autograd.grad` for K3 on
-    (dy, x) and K5."""
+    serving has no backward), and in bf16 one rank's D slab of it over
+    MGPU_WORLD ranks (the space-sharded served volume). The library call
+    is the GroupNorm pass each takes part in, on the same tensor (8
+    groups): `F.group_norm` forward for K3 and K4, its backward through
+    `torch.autograd.grad` for K3 on (dy, x) and K5."""
     g = torch.Generator(dev).manual_seed(2)
     S, size = scfg.all_samples, tuple(scfg.size)
     shapes = {"pair enc": (S, GN_F_MAPS, *size),
               "pair z": (S, 2 * GN_F_MAPS, *(n // 2 for n in size)),
-              "serve": (1, GN_F_MAPS, *SERVE_WIN)}
+              "serve": (1, GN_F_MAPS, *SERVE_WIN),
+              "serve slab": (1, GN_F_MAPS, SERVE_WIN[0] // MGPU_WORLD,
+                             *SERVE_WIN[1:])}
     cases = []
     for dname, dtype in GN_DTYPES:
         sdt = groupnorm.stats_dtype(dtype)
         for part, shape in shapes.items():
+            if part == "serve slab" and dname != "bf16":
+                continue
             N, C = shape[:2]
             x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
             w = torch.linspace(0.5, 1.5, C, device=dev, dtype=dtype)
@@ -854,7 +870,7 @@ def gn_cases(scfg, dev) -> list:
                 lambda x=x: groupnorm.chan_sums_plain(x), lib_fwd,
                 nx + 2 * nc * ss, exact=False, rtol=GN_SUMS_RTOL,
                 reps=GN_REPS, info=fwd))
-            if part != "serve":
+            if not part.startswith("serve"):
                 dy = torch.randn(shape, generator=g, device=dev).to(dtype)
                 PQR = [(torch.randn((N, C), generator=g, device=dev) * 0.1)
                        .to(dtype) for _ in range(3)]
@@ -884,7 +900,7 @@ def gn_cases(scfg, dev) -> list:
                 lambda x=x, a=a2: groupnorm.chan_affine_plain(x, *a),
                 lib_fwd, 2 * nx + 2 * nc * ss, exact=True, reps=GN_REPS,
                 info=fwd))
-            if part != "serve":
+            if not part.startswith("serve"):
                 cases.append(Case(
                     f"chan_affine3 {dname} {part}", "chan_affine3",
                     lambda x=x, dy=dy, c=PQR: groupnorm.chan_affine3(dy, x,
@@ -893,7 +909,8 @@ def gn_cases(scfg, dev) -> list:
                         dy, x, *c),
                     lib_bwd, 3 * nx + 3 * nc * es, exact=True, reps=GN_REPS,
                     info=bwd))
-    order = {n: i for i, n in enumerate(GN_TRAIN_CASES + GN_SERVE_CASES)}
+    order = {n: i for i, n in enumerate(GN_TRAIN_CASES + GN_SERVE_CASES
+                                         + GN_SLAB_CASES)}
     return sorted(cases, key=lambda c: order[c.name])
 
 
@@ -927,7 +944,8 @@ ENTRY_CASES = ("warp_linear_f32 C=10 dry run", "warp_nearest_i32 dry run",
 # the `kernels` line's key for each path's own cases
 PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
               "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES,
-              "entry_case": ENTRY_CASES, "gn_serve_case": GN_SERVE_CASES}
+              "entry_case": ENTRY_CASES, "gn_serve_case": GN_SERVE_CASES,
+              "gn_slab_case": GN_SLAB_CASES}
 
 
 def check_kernels(scfg, dev):
@@ -2927,20 +2945,26 @@ def _mgpu_loss_grads(model, cfg, batch, mesh):
 
 def _mgpu_unet(dev, mesh, rank):
     """Check 1: the space-sharded L6 step at fp64 against the same model
-    unsharded on the card (rank 0)."""
+    unsharded on the card (rank 0), with the kernels' launches of the
+    sharded step and the model's number of GroupNorms (each one K4 launch
+    in the forward, sharded or whole)."""
     cfg = mgpu_cfg()
     torch.manual_seed(0)
     _, model = build_model(cfg, device=dev)
     model.double()
     batch = mgpu_batch(cfg, dev)
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     loss, grads = _mgpu_loss_grads(model, cfg, batch, mesh)
     for g in grads.values():
         torch.distributed.all_reduce(g)
     torch.cuda.synchronize()
     sharded_ms = (time.perf_counter() - t0) * 1e3
-    out = {"loss": loss, "step_ms": sharded_ms}
+    out = {"loss": loss, "step_ms": sharded_ms,
+           "launches": dict(kernels.LAUNCHES),
+           "group_norms": sum(isinstance(m, torch.nn.GroupNorm)
+                              for m in model.modules())}
     if rank == 0:
         t0 = time.perf_counter()
         ref_loss, ref = _mgpu_loss_grads(model, cfg, batch, None)
@@ -3084,6 +3108,35 @@ def _mgpu_serve(dev, mesh, pth, rank):
     return out
 
 
+def _mgpu_slab_gn(dev, mesh, rank):
+    """Check 4: this rank's D slab of one bf16 1 x GN_F_MAPS x SERVE_WIN
+    tensor (the same on every rank) through fused_group_norm with the
+    space group, against the unsharded function of the whole tensor,
+    sliced: within one bf16 ulp, or GN_BF16_ATOL near 0 (the rule of
+    tests/test_torch_parallel.py); and K3 on the slab against its plain
+    version (GN_SUMS_RTOL)."""
+    from brainfm_tpu_torch.parallel.mesh import axis_size, local_slice
+
+    g = torch.Generator(dev).manual_seed(4)
+    x = (torch.randn((1, GN_F_MAPS, *SERVE_WIN), generator=g, device=dev)
+         + 0.5).to(torch.bfloat16)
+    w = torch.linspace(0.5, 1.5, GN_F_MAPS, device=dev)
+    b = torch.linspace(-0.2, 0.2, GN_F_MAPS, device=dev)
+    n = axis_size(mesh, "space")
+    slab = local_slice(x, n, rank, 2).contiguous()
+    want = local_slice(groupnorm.fused_group_norm(x, w, b, 8), n, rank, 2)
+    del x
+    got = groupnorm.fused_group_norm(slab, w, b, 8,
+                                     group=mesh.get_group("space"))
+    ulp = 2.0 ** -7 * torch.maximum(got.float().abs(), want.float().abs())
+    excess = float(((got.float() - want.float()).abs() - ulp).max())
+    sums, plain = groupnorm.chan_sums(slab), groupnorm.chan_sums_plain(slab)
+    return {"shape": list(slab.shape), "dtype": str(got.dtype),
+            "ulp_excess_max": excess,
+            "sums_rel_err": float((sums - plain).abs().max()
+                                  / plain.abs().max())}
+
+
 def multigpu_rank(rank, world, port, out_path, pth):
     """One rank of multigpu_reference (a process of its own on the card)."""
     import faulthandler
@@ -3107,7 +3160,8 @@ def multigpu_rank(rank, world, port, out_path, pth):
     # FSDP2 on NCCL.
     checks = [("unet", lambda: _mgpu_unet(dev, space, rank)),
               ("synth", lambda: _mgpu_synth(dev, data)),
-              ("serve", lambda: _mgpu_serve(dev, space, pth, rank))]
+              ("serve", lambda: _mgpu_serve(dev, space, pth, rank)),
+              ("slab_gn", lambda: _mgpu_slab_gn(dev, space, rank))]
     for name, check in checks:
         print(f"rank {rank}: {name}", flush=True)
         res[name] = check()
@@ -3154,8 +3208,9 @@ def check_multigpu_reference(dev, power, pth, tmp):
     del serial, subj
     torch.cuda.empty_cache()
 
-    launches = {k: sum(r["synth"]["launches"][k] + r["serve"]["launches"][k]
-                       for r in res) for k in kernels.LAUNCHES}
+    launches = {k: sum(r[c]["launches"][k] for r in res
+                       for c in ("unet", "synth", "serve"))
+                for k in kernels.LAUNCHES}
     u, sv = res[0]["unet"], res[0]["serve"]
     bad = {}
     if not (u["loss_rel"] <= MGPU_LOSS_TOL and u["grad_rel_l2"]
@@ -3167,18 +3222,28 @@ def check_multigpu_reference(dev, power, pth, tmp):
             or sv["fp64_label_agree"] < SEG_AGREE or not sv["finite"]:
         bad["serve"] = sv
     for r in res:
-        sl = r["synth"]["launches"]
+        sl, ul, vl = (r[c]["launches"] for c in ("synth", "unet", "serve"))
+        # every GroupNorm of the sharded step through K4 once, sharded
+        # levels included; K3 and K5 in its backward; K3 and K4 serving
         if sl["warp_linear_f32"] < 1 or sl["lut_gather_i32"] < 1 \
-                or sl["lut_gather_f32"] < 1 \
-                or r["serve"]["launches"]["lut_gather_i32"] < 1:
-            bad[f"rank{r['rank']}_launches"] = [sl, r["serve"]["launches"]]
+                or sl["lut_gather_f32"] < 1 or vl["lut_gather_i32"] < 1 \
+                or ul["chan_affine"] != r["unet"]["group_norms"] \
+                or ul["chan_sums"] < 1 or ul["chan_affine3"] < 1 \
+                or vl["chan_sums"] < 1 or vl["chan_affine"] < 1:
+            bad[f"rank{r['rank']}_launches"] = [sl, ul, vl]
+        gn = r["slab_gn"]
+        if gn["dtype"] != "torch.bfloat16" or not gn["ulp_excess_max"] \
+                <= GN_BF16_ATOL or not gn["sums_rel_err"] <= GN_SUMS_RTOL:
+            bad[f"rank{r['rank']}_slab_gn"] = gn
     emit({"phase": "multigpu_reference", "ranks": MGPU_WORLD,
           "backend": res[0]["backend"],
           "backend_why": "two ranks share one card; NCCL refuses that",
           "unet": {"size": list(MGPU_SIZE), "f_maps": MGPU_F_MAPS,
                    "num_levels": 6, "dtype": "float64", **u,
                    "loss_tol": MGPU_LOSS_TOL, "grad_tol": MGPU_GRAD_TOL,
-                   "tensor_tol": MGPU_TENSOR_TOL},
+                   "tensor_tol": MGPU_TENSOR_TOL,
+                   "launches_per_rank": [r["unet"]["launches"]
+                                         for r in res]},
           "synth": {"bitwise_serial": synth_equal,
                     "item_ms": [r["synth"]["item_ms"] for r in res],
                     "launches_per_rank": [r["synth"]["launches"]
@@ -3199,6 +3264,9 @@ def check_multigpu_reference(dev, power, pth, tmp):
                     "model_tol": MODEL_TOL, "seg_agree_min": SEG_AGREE,
                     "launches_per_rank": [r["serve"]["launches"]
                                           for r in res]},
+          "slab_gn": {"per_rank": [r["slab_gn"] for r in res],
+                      "ulp_excess_tol": GN_BF16_ATOL,
+                      "sums_rtol": GN_SUMS_RTOL},
           "fsdp": "with the CPU test: FSDP2 over gloo on CUDA segfaulted",
           "ranks_s": ranks_s, "launches": launches, "gpu": power})
     if bad:

@@ -159,8 +159,8 @@ def world_sum(grads):
 
 def rank_parallel(rank, world, tmp):
     """halo_exchange forward and backward, gather_space / slice_space
-    backward, make_mesh's size error and a blur tower through
-    spatial_shard_conv_apply on space=2."""
+    backward, make_mesh's size error, a blur tower through
+    spatial_shard_conv_apply and the slab GroupNorm on space=2."""
     import torch.nn.functional as F
 
     from brainfm_tpu_torch.parallel import (halo_exchange, make_mesh,
@@ -249,6 +249,55 @@ def rank_parallel(rank, world, tmp):
     out["blur_slab"] = spatial_shard_conv_apply(
         tower, local_slice(vol, world, rank, 2), mesh, halo=2).detach()
     out["blur_input"], out["blur_w"] = vol, (w1, w2)
+    out.update(_slab_group_norm(rank, world, mesh))
+    return out
+
+
+def gn_case():
+    """The sharded GroupNorm's input (2, 16, 8, 6, 10), scale, bias and
+    output cotangent, seeded numpy at fp64; 8 groups."""
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2, 16, 8, 6, 10)) * 2.0 + 0.5
+    return (x, rng.standard_normal(16), rng.standard_normal(16),
+            rng.standard_normal(x.shape))
+
+
+def _slab_group_norm(rank, world, mesh):
+    """fused_group_norm on this rank's D slab of gn_case() over the
+    space group: at fp64 the slab's output, dx and its share of the
+    scale's and bias's gradients; in bf16 the slab's output, through the
+    function and through a SingleConv's GroupNorm in a space scope (an
+    identity 1^3 conv first, under autocast), beside the unsharded
+    function's output of the whole tensor, sliced."""
+    from brainfm_tpu_torch.models.unet3d import SingleConv
+    from brainfm_tpu_torch.ops.groupnorm import fused_group_norm
+    from brainfm_tpu_torch.parallel.mesh import local_slice
+    from brainfm_tpu_torch.parallel.spatial import space_scope
+
+    group = mesh.get_group("space")
+    x, scale, bias, gy = (torch.from_numpy(a) for a in gn_case())
+
+    def slab(t):
+        return local_slice(t, world, rank, 2).contiguous()
+
+    xs = slab(x).requires_grad_()
+    sc, bi = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+    y = fused_group_norm(xs, sc, bi, 8, group=group)
+    y.backward(slab(gy))
+    out = {"gn_y": y.detach(), "gn_dx": xs.grad, "gn_dscale": sc.grad,
+           "gn_dbias": bi.grad}
+
+    xb, sb, bb = x.to(torch.bfloat16), scale.float(), bias.float()
+    out["gn_bf16_want"] = slab(fused_group_norm(xb, sb, bb, 8))
+    out["gn_bf16_fn"] = fused_group_norm(slab(xb), sb, bb, 8, group=group)
+    layer = SingleConv(16, 16, order="cg", kernel_size=1)
+    with torch.no_grad():
+        layer.conv.weight.copy_(torch.eye(16).reshape(16, 16, 1, 1, 1))
+        layer.groupnorm.weight.copy_(sb)
+        layer.groupnorm.bias.copy_(bb)
+    with space_scope(mesh), torch.no_grad(), \
+            torch.autocast("cpu", dtype=torch.bfloat16):
+        out["gn_bf16_layer"] = layer(slab(xb))
     return out
 
 

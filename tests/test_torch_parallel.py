@@ -1,9 +1,11 @@
 """The port's multi-GPU layer (brainfm_tpu_torch/parallel) on the CPU:
 fsdp_spec against the JAX package's rule, make_mesh's checks, and on two
 spawned gloo ranks (space=2) the halo exchange forward and backward,
-gather_space / slice_space and a blur tower through
+gather_space / slice_space, a blur tower through
 spatial_shard_conv_apply against the JAX package's on a 2-device JAX mesh
-at fp64."""
+at fp64, and the space-sharded GroupNorm (`fused_group_norm` with the
+space group) against the JAX package's `_fused_groupnorm` of the whole
+tensor at fp64 and against the unsharded port in bf16."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,10 @@ from brainfm_tpu_torch.parallel import fsdp, mesh
 import _torch_dist as td
 
 TOL = 1e-12
+# the slab GroupNorm against `_fused_groupnorm` at fp64, as
+# tests/test_torch_groupnorm.py (the sums are added in other orders)
+GN_VAL_TOL = 1e-10
+GN_GRAD_TOL = 1e-8
 
 
 @pytest.fixture(scope="module")
@@ -138,3 +144,58 @@ def test_level_layout():
                                        False]
     assert level_layout(6, 2, 3) == [False, False, False]
     assert level_layout(64, 2, 5) == [True, True, True, True, False]
+
+
+@pytest.fixture(scope="module")
+def jax_gn():
+    """`_fused_groupnorm` of td.gn_case()'s whole tensor under x64: the
+    output, dx, dscale and dbias, NCDHW."""
+    from brainfm_tpu.models import unet3d as u3
+
+    x, scale, bias, gy = td.gn_case()
+    jax.config.update("jax_enable_x64", True)
+    try:
+        y, vjp = jax.vjp(lambda a, s, b: u3._fused_groupnorm(a, s, b, 8),
+                         jnp.asarray(np.moveaxis(x, 1, -1)),
+                         jnp.asarray(scale), jnp.asarray(bias))
+        dx, ds, db = vjp(jnp.asarray(np.moveaxis(gy, 1, -1)))
+        return {"gn_y": np.moveaxis(np.asarray(y), -1, 1),
+                "gn_dx": np.moveaxis(np.asarray(dx), -1, 1),
+                "gn_dscale": np.asarray(ds), "gn_dbias": np.asarray(db)}
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+@pytest.mark.parametrize("what,tol", [("gn_y", GN_VAL_TOL),
+                                      ("gn_dx", GN_GRAD_TOL),
+                                      ("gn_dscale", GN_GRAD_TOL),
+                                      ("gn_dbias", GN_GRAD_TOL)])
+def test_slab_group_norm_matches_jax(ranks, jax_gn, what, tol):
+    """Each rank's fp64 slab through fused_group_norm with the space
+    group: the slabs' outputs and dx concatenated on D against the whole
+    tensor's; the scale's and bias's gradients summed over the ranks (each
+    rank holds its slab's share, as the train step sums them)."""
+    if what in ("gn_y", "gn_dx"):
+        got = torch.cat([r[what] for r in ranks], dim=2)
+    else:
+        got = sum(r[what] for r in ranks)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), jax_gn[what], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("via", ["fn", "layer"])
+def test_slab_group_norm_bf16_matches_the_unsharded(ranks, via):
+    """A bf16 slab's GroupNorm stays bf16, through the function and
+    through a SingleConv in a space scope under autocast, and agrees with
+    the unsharded function of the whole tensor, sliced: within one bf16
+    ulp, or 1e-5 where the fp32 value near 0 rounds to neighbours finer
+    than that (the fp32 statistics differ in their last bits: the slabs'
+    sums are added in another order), the rule of
+    tests/test_torch_cuda.py::test_bf16_group_norm_on_the_card_matches_the_cpu."""
+    for r in ranks:
+        got, want = r[f"gn_bf16_{via}"], r["gn_bf16_want"]
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert got.shape == want.shape == (2, 16, 4, 6, 10)
+        ulp = 2.0 ** -7 * torch.maximum(got.float().abs(), want.float().abs())
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= ulp + 1e-5).all()), float((err - ulp).max())
