@@ -1,0 +1,19 @@
+"""Milliseconds a served volume spends reading its file: the program's
+`serve.read` spans (infer/prepare.py, `load_nifti`; recorded by
+brainfm_tpu_torch/utils/profiling.py while the traced window runs),
+clipped to the window and summed, over the volumes served."""
+
+
+def read(w):
+    from brainfm_tpu_torch.utils import profiling
+
+    spans = getattr(profiling, "SPANS", None)
+    if w.timeline is None or not w.done or not spans:
+        return None
+    a, b = w.timeline.t0_ns, w.timeline.t1_ns
+    inside = [(max(s.t0, a), min(s.t1, b)) for s in list(spans)
+              if s.name == "serve.read" and s.t1 is not None and s.t1 > a
+              and s.t0 < b]
+    if not inside:
+        return None
+    return sum(y - x for x, y in inside) / 1e6 / w.done

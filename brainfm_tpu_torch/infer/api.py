@@ -37,6 +37,7 @@ from ..train.checkpoint import (MODEL_FILE, load_model_weights,
 from ..train.orbax_read import is_orbax_dir
 from ..ops.warp import warp_volume
 from ..utils.nifti import MRIread, viewVolume
+from ..utils.profiling import annotate, count, within
 from .prepare import prepare_image
 from .tiles import tiled_apply
 
@@ -220,15 +221,17 @@ class Inferencer:
         copies go into page-locked buffers, all queued before one wait
         (a copy into pageable memory is staged and runs several times
         slower); PyTorch's host allocator keeps the buffers for the next
-        volume."""
-        sel = {k: v for k, v in outs.items()
-               if k not in exclude_keys and not k.startswith("feat")}
-        if self.device.type != "cuda":
-            return {k: v.numpy() for k, v in sel.items()}
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                .copy_(v, non_blocking=True) for k, v in sel.items()}
-        torch.cuda.current_stream(self.device).synchronize()
-        return {k: v.numpy() for k, v in host.items()}
+        volume. The span `serve.fetch`."""
+        with annotate("serve.fetch"):
+            sel = {k: v for k, v in outs.items()
+                   if k not in exclude_keys and not k.startswith("feat")}
+            if self.device.type != "cuda":
+                return {k: v.numpy() for k, v in sel.items()}
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    .copy_(v, non_blocking=True) for k, v in sel.items()}
+            count("host_syncs")
+            torch.cuda.current_stream(self.device).synchronize()
+            return {k: v.numpy() for k, v in host.items()}
 
     def _writes(self) -> bool:
         """Whether this rank writes a served volume: rank 0 of a mesh (its
@@ -242,7 +245,8 @@ class Inferencer:
 
     def _write_outputs(self, host, aff, out_dir, ext):
         """Encode host arrays to NIfTI on a small thread pool; every output
-        but the registration coordinates is clipped at 0."""
+        but the registration coordinates is clipped at 0. The span
+        `serve.write`."""
         def _write_one(item):
             key, val = item
             arr = np.asarray(val)[0]
@@ -251,7 +255,7 @@ class Inferencer:
             viewVolume(arr.squeeze(), aff, names=[f"out_{key}"], ext=ext,
                        save_dir=out_dir)
 
-        with ThreadPoolExecutor(max_workers=4) as ex:
+        with annotate("serve.write"), ThreadPoolExecutor(max_workers=4) as ex:
             list(ex.map(_write_one, host.items()))
 
     def _prepare(self, path, win_size):
@@ -273,7 +277,12 @@ class Inferencer:
 
         batch_size > 1: groups of volumes through evaluate_batch, bucketed
         by shape within a group (center_crop passes volumes smaller than
-        win_size through uncropped), one pass per bucket."""
+        win_size through uncropped), one pass per bucket.
+
+        Each input path is the span `serve.volume` (a unit of work,
+        utils/profiling.py) over `serve.read`, `serve.prepare`,
+        `serve.forward` (evaluate_image), `serve.fetch` and `serve.write`,
+        on whichever thread runs each."""
         input_paths = list(input_paths)
         if batch_size > 1 and input_paths:
             return self._evaluate_path_batched(
@@ -283,44 +292,64 @@ class Inferencer:
         writes = self._writes()
         if not prefetch or len(input_paths) <= 1:
             for p in input_paths:
-                im, aff, _, _ = self._prepare(p, win_size)
-                out_dir = self._out_dir(save_dir, p)
-                if writes:
-                    os.makedirs(out_dir, exist_ok=True)
-                if save_input and writes:
-                    viewVolume(im.cpu().numpy(), aff, names=["input"],
-                               ext=ext, save_dir=out_dir)
-                outs = self.evaluate_image(im, keep_feat=False)
-                host = self.fetch_outputs(outs, exclude_keys)
-                del outs
-                if writes:
-                    self._write_outputs(host, aff, out_dir, ext)
-                results.append(out_dir)
-            return results
-
-        with ThreadPoolExecutor(max_workers=2) as ex:
-            load = ex.submit(self._prepare, input_paths[0], win_size)
-            write = None
-            try:
-                for i, p in enumerate(input_paths):
-                    im, aff, _, _ = load.result()
-                    if i + 1 < len(input_paths):
-                        load = ex.submit(self._prepare, input_paths[i + 1],
-                                         win_size)
+                with annotate("serve.volume", unit=True):
+                    im, aff, _, _ = self._prepare(p, win_size)
                     out_dir = self._out_dir(save_dir, p)
                     if writes:
                         os.makedirs(out_dir, exist_ok=True)
                     if save_input and writes:
+                        count("host_syncs")
                         viewVolume(im.cpu().numpy(), aff, names=["input"],
                                    ext=ext, save_dir=out_dir)
-                    outs = self.evaluate_image(im, keep_feat=False)
+                    with annotate("serve.forward"):
+                        outs = self.evaluate_image(im, keep_feat=False)
                     host = self.fetch_outputs(outs, exclude_keys)
+                    del outs
+                    if writes:
+                        self._write_outputs(host, aff, out_dir, ext)
+                results.append(out_dir)
+            return results
+
+        def load_one(vol, p):
+            with within(vol):
+                return self._prepare(p, win_size)
+
+        def write_one(vol, host, aff, out_dir):
+            with within(vol):
+                self._write_outputs(host, aff, out_dir, ext)
+            vol.close()
+
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            vol = annotate("serve.volume", unit=True).open()
+            load = ex.submit(load_one, vol, input_paths[0])
+            write = None
+            try:
+                for i, p in enumerate(input_paths):
+                    im, aff, _, _ = load.result()
+                    this = vol
+                    if i + 1 < len(input_paths):
+                        vol = annotate("serve.volume", unit=True).open()
+                        load = ex.submit(load_one, vol, input_paths[i + 1])
+                    out_dir = self._out_dir(save_dir, p)
+                    if writes:
+                        os.makedirs(out_dir, exist_ok=True)
+                    with within(this):
+                        if save_input and writes:
+                            count("host_syncs")
+                            viewVolume(im.cpu().numpy(), aff,
+                                       names=["input"], ext=ext,
+                                       save_dir=out_dir)
+                        with annotate("serve.forward"):
+                            outs = self.evaluate_image(im, keep_feat=False)
+                        host = self.fetch_outputs(outs, exclude_keys)
                     del outs
                     if write is not None:
                         write.result()
                     if writes:
-                        write = ex.submit(self._write_outputs, host, aff,
-                                          out_dir, ext)
+                        write = ex.submit(write_one, this, host, aff,
+                                          out_dir)
+                    else:
+                        this.close()
                     results.append(out_dir)
             finally:
                 # a pending write's failure surfaces even when a later

@@ -20,6 +20,7 @@ from ..ops.resize import myzoom, volume_resize
 from ..ops.warp import warp_volume
 from ..utils.nifti import load_nifti
 from ..utils.orientation import ras_reorientation
+from ..utils.profiling import annotate, count
 
 
 def zero_crop_bounds(vol: np.ndarray, tol: float = 0.0):
@@ -60,6 +61,7 @@ def add_bias_field(im, seed: int = 0, bf_scale_min: float = 0.02,
     scale = bf_scale_min + rng.random() * (bf_scale_max - bf_scale_min)
     small = np.round(scale * shp).astype(int)
     std = bf_std_min + (bf_std_max - bf_std_min) * rng.random()
+    count("host_syncs")
     bf_log = torch.from_numpy(
         (std * rng.standard_normal(small)).astype(np.float32)).to(im.device)
     bf = torch.exp(myzoom(bf_log, shp / small,
@@ -77,6 +79,7 @@ def acquisition_grid(shape, new_res, device):
     delta = (1.0 - factors) / (2.0 * factors)
     vs = [np.arange(delta[a], delta[a] + new_size[a] / factors[a],
                     1 / factors[a])[: new_size[a]] for a in range(3)]
+    count("host_syncs", 3)
     grid = [torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(device)
             for c in np.meshgrid(*vs, sparse=False, indexing="ij")]
     return grid, factors
@@ -100,35 +103,41 @@ def prepare_image(img_path: str, win_size=None, zero_crop_first: bool = False,
     """(parity: prepare_image, test_utils.py:235-284 incl. the synthetic
     bias field and acquisition-spacing resample). Returns
     (im: tensor (D,H,W) on `device` (default CUDA), aff, crop_start,
-    orig_shp)."""
+    orig_shp). Spans `serve.read` (the file) and `serve.prepare` (the
+    rest), utils/profiling.py."""
     dev = resolve_device(device)
-    im, aff = load_nifti(img_path)
-    im = np.nan_to_num(np.squeeze(im)).astype(np.int32 if is_label
-                                              else np.float32)
-    if im.ndim > 3:
-        im = im.mean(-1)
-    if is_CT and rescale:
-        im = np.clip(im, 0.0, 80.0)
-    if not is_label and rescale:
-        im = im - im.min()
-        mx = im.max()
-        if mx > 0:
-            im = im / mx
+    with annotate("serve.read"):
+        im, aff = load_nifti(img_path)
+    with annotate("serve.prepare"):
+        im = np.nan_to_num(np.squeeze(im)).astype(np.int32 if is_label
+                                                  else np.float32)
+        if im.ndim > 3:
+            im = im.mean(-1)
+        if is_CT and rescale:
+            im = np.clip(im, 0.0, 80.0)
+        if not is_label and rescale:
+            im = im - im.min()
+            mx = im.max()
+            if mx > 0:
+                im = im / mx
 
-    # NIfTI voxels come in Fortran order: copied to the device as they lie,
-    # they are made C-contiguous there, where the transposed copy is cheap
-    t, aff = volume_resize(torch.from_numpy(im).to(dev).contiguous(), aff,
-                           1.0)
-    if add_bf and not is_CT and not is_label:
-        t, _ = add_bias_field(t, seed=bf_seed)
-    if spacing is not None and not is_label:
-        t = resample_roundtrip(t, spacing)
-    perm, flips, aff = ras_reorientation(aff, t.shape, aff_ref=np.eye(4))
-    t = t.permute(perm)
-    if flips:
-        t = t.flip(flips)
-    if zero_crop_first:
-        lo, hi = zero_crop_bounds(t.cpu().numpy())
-        t = t[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-    t, crop_start, orig_shp, aff = center_crop(t, win_size, aff)
-    return t.contiguous(), aff, crop_start, orig_shp
+        # NIfTI voxels come in Fortran order: copied to the device as they
+        # lie, they are made C-contiguous there, where the transposed copy
+        # is cheap
+        count("host_syncs")
+        t, aff = volume_resize(torch.from_numpy(im).to(dev).contiguous(), aff,
+                               1.0)
+        if add_bf and not is_CT and not is_label:
+            t, _ = add_bias_field(t, seed=bf_seed)
+        if spacing is not None and not is_label:
+            t = resample_roundtrip(t, spacing)
+        perm, flips, aff = ras_reorientation(aff, t.shape, aff_ref=np.eye(4))
+        t = t.permute(perm)
+        if flips:
+            t = t.flip(flips)
+        if zero_crop_first:
+            count("host_syncs")
+            lo, hi = zero_crop_bounds(t.cpu().numpy())
+            t = t[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        t, crop_start, orig_shp, aff = center_crop(t, win_size, aff)
+        return t.contiguous(), aff, crop_start, orig_shp

@@ -25,6 +25,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.lut import lut_apply
 from ..synth.constants import LABELS_EXTRACEREBRAL, LABELS_LEFT
+from ..utils.profiling import count
 from .heads import TaskHead
 from .params_io import read_state_dict
 from .unet3d import UNet2D, UNet3D, UNet3DSep
@@ -465,6 +466,7 @@ def postprocess(outputs: dict, cfg, samples: dict | None = None,
                                                  r[..., 2:3])
     if "segmentation" in tasks and "segmentation" in out:
         seg = out["segmentation"]
+        count("host_syncs")   # the label table copied to the card
         lab = torch.tensor(list(cfg.label_list_segmentation),
                            dtype=torch.int32, device=seg.device)
         idx = torch.argmax(seg, dim=-1).to(torch.int32)

@@ -20,6 +20,7 @@ import torch
 
 from .losses import (gaussian_loss, gradient_loss, hessian_loss, l1_loss,
                      l2_loss, laplace_loss, smoothness_loss)
+from ..utils.profiling import count
 
 _SPATIAL = (1, 2, 3)  # reduce dims for (S, D, H, W, C) per-sample dice sums
 _IMAGES = ("T1", "T2", "FLAIR", "CT")
@@ -27,6 +28,12 @@ _IMAGES = ("T1", "T2", "FLAIR", "CT")
 _TARGET_OF = {"seg_ce": "segmentation", "seg_dice": "segmentation",
               "distance": "distance", "registration": "registration",
               "registration_grad": "registration"}
+
+
+def _to(t, device):
+    """A host tensor copied to `device`: one host sync."""
+    count("host_syncs")
+    return t.to(device)
 
 
 def _seg_weights(n_labels: int, label_list_with_csf, relative_weight_lesions: float):
@@ -159,13 +166,13 @@ def make_criterion(cfg) -> tuple[list, dict, Callable]:
             elif name == "seg_ce":
                 p = outputs["segmentation"]
                 losses["loss_seg_ce"] = ce(p, targets["segmentation"],
-                                           w_seg.to(p.device))
+                                           _to(w_seg, p.device))
             elif name == "seg_dice":
                 p = outputs["segmentation"]
                 # sum over (S, labels) then / S: the reference's sample
                 # averaging
                 losses["loss_seg_dice"] = _dice(p, targets["segmentation"],
-                                                w_seg.to(p.device)) / S
+                                                _to(w_seg, p.device)) / S
             elif name in ("pathol_ce", "pathol_dice"):
                 if "pathology" not in outputs or "pathology" not in targets:
                     continue

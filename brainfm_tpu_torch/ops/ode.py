@@ -13,10 +13,11 @@ in the JAX package.
 The JAX package keeps time and step size as arrays of the state's dtype
 inside a `lax.while_loop`; here the adaptive loop runs on the host, with
 time and step size as numpy scalars of the state's dtype (the same IEEE
-arithmetic) and one host read of the error ratio per step. `stats`, when
-given, receives the counts of adaptive steps (`steps`, rejected ones
-included), of `rejected` steps and of right-hand-side evaluations
-(`evals`).
+arithmetic) and one host read of the error ratio per step. The
+counters `ode.steps` (adaptive steps, rejected ones included),
+`ode.rejected`, `ode.evals` (right-hand-side evaluations) and
+`host_syncs` (the reads of the error ratio) are kept by
+utils/profiling.py while it records.
 
 `odeint_adjoint` is the differentiable form: the fixed-step methods
 recompute each interval in the backward pass
@@ -30,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..utils.profiling import count
 
 
 def _f32(x):
@@ -85,17 +88,9 @@ _AM4 = _f32([9.0, 19.0, -5.0, 1.0]) / _f32(24.0)
 MAX_STEPS = 256
 
 
-def _count(stats, key, n=1):
-    if stats is not None:
-        stats[key] = stats.get(key, 0) + n
-
-
-def _counted(func, stats):
-    if stats is None:
-        return func
-
+def _counted(func):
     def f(t, y):
-        _count(stats, "evals")
+        count("ode.evals")
         return func(t, y)
     return f
 
@@ -144,7 +139,7 @@ def _is_fsal(tab):
 
 
 def _adaptive_interval(func, tab, y, t0, t1, rtol, atol, h, k1,
-                       max_steps=MAX_STEPS, stats=None):
+                       max_steps=MAX_STEPS):
     """Advance y from t0 to t1 with the embedded pair `tab`, starting from
     step size h and first stage k1. Returns (y, h, k1) for the next
     interval; a rejected step leaves (t, y, k1) as they were."""
@@ -166,6 +161,7 @@ def _adaptive_interval(func, tab, y, t0, t1, rtol, atol, h, k1,
         err = _combine(BERR, ks) * float(h)
         scale = atol + rtol * torch.maximum(y.abs(), y_new.abs())
         ratio = one(float(torch.sqrt(torch.mean((err / scale) ** 2))))
+        count("host_syncs")
         accept = ratio <= 1.0
         factor = np.clip(one(0.9) * (np.maximum(ratio, one(1e-10))
                                      ** one(-0.2)), one(0.2), one(10.0))
@@ -175,10 +171,10 @@ def _adaptive_interval(func, tab, y, t0, t1, rtol, atol, h, k1,
             t = t + h
             y = y_new
         else:
-            _count(stats, "rejected")
+            count("ode.rejected")
         h = h_next
         nsteps += 1
-    _count(stats, "steps", nsteps)
+    count("ode.steps", nsteps)
     return y, h, k1
 
 
@@ -222,13 +218,12 @@ def _dt0(dt, t):
     return t.dtype.type(dt if dt is not None else (t[1] - t[0]))
 
 
-def odeint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
-           stats=None):
+def odeint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None):
     """Integrate dy/dt = func(t, y) through the output times `t` (T,).
     Returns (T, *y0.shape)."""
     method = method or "dopri5"
     t = _np_times(t, y0)
-    func = _counted(func, stats)
+    func = _counted(func)
     if method in _FIXED_STEPS:
         return _fixed_grid_integrate(func, y0, t, method)
     if method == "adams":
@@ -238,11 +233,10 @@ def odeint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
                                 corrector=(method != "explicit_adams"))
     if method not in _TABLEAUS:
         raise ValueError(f"unsupported method {method}")
-    return _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats)
+    return _adaptive_integrate(func, y0, t, dt, rtol, atol, method)
 
 
-def _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats,
-                        k1=None):
+def _adaptive_integrate(func, y0, t, dt, rtol, atol, method, k1=None):
     """The adaptive pair `method` through the output times t, with the
     step size and the first stage carried across the intervals."""
     tab = _TABLEAUS[method]
@@ -251,13 +245,12 @@ def _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats,
     ys, y = [y0], y0
     for i in range(t.shape[0] - 1):
         y, h, k1 = _adaptive_interval(func, tab, y, t[i], t[i + 1], rtol,
-                                      atol, h, k1, stats=stats)
+                                      atol, h, k1)
         ys.append(y)
     return torch.stack(ys)
 
 
-def odeint_adjoint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
-                   stats=None):
+def odeint_adjoint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None):
     """odeint for reverse-mode differentiation (API parity:
     ShapeID/DiffEqs/adjoint.py `odeint_adjoint`). Returns (T, *y0.shape).
 
@@ -273,7 +266,7 @@ def odeint_adjoint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
     one."""
     method = method or "dopri5"
     t = _np_times(t, y0)
-    func = _counted(func, stats)
+    func = _counted(func)
     if method in _FIXED_STEPS:
         step = _FIXED_STEPS[method]
         ys = [y0]
@@ -293,18 +286,17 @@ def odeint_adjoint(func, y0, t, dt=None, rtol=1e-7, atol=1e-9, method=None,
             "differentiated (its step controller reads the error on the "
             "host); use a fixed-step method (euler, midpoint, rk4) on a "
             "finer grid, or call it under torch.no_grad()")
-    return _adaptive_integrate(func, y0, t, dt, rtol, atol, method, stats,
-                               k1=k1)
+    return _adaptive_integrate(func, y0, t, dt, rtol, atol, method, k1=k1)
 
 
 def odeint_masked_final(func, y0, t, nt: int, dt=None, method="rk4",
-                        rtol=1e-7, atol=1e-9, stats=None):
+                        rtol=1e-7, atol=1e-9):
     """y at t[nt-1]: the first nt-1 intervals of the grid `t` (the JAX
     package masks the rest of a static-length scan; here the loop stops).
     The Adams family takes the adaptive dopri5 controller, as in the JAX
     package."""
     t = _np_times(t, y0)
-    func = _counted(func, stats)
+    func = _counted(func)
     nt = int(nt)
     if method in ("adams", "explicit_adams", "fixed_adams"):
         method = "dopri5"
@@ -314,7 +306,7 @@ def odeint_masked_final(func, y0, t, nt: int, dt=None, method="rk4",
         y = y0
         for i in range(min(nt - 1, t.shape[0] - 1)):
             y, h, k1 = _adaptive_interval(func, tab, y, t[i], t[i + 1],
-                                          rtol, atol, h, k1, stats=stats)
+                                          rtol, atol, h, k1)
         return y
     if method not in _FIXED_STEPS:
         raise ValueError(f"unsupported method {method}")

@@ -14,6 +14,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from ..utils.profiling import count
 from .fd import curl_3d
 
 if TYPE_CHECKING:   # synth/ imports this module
@@ -59,6 +60,7 @@ def perlin_noise_3d(draws: Draws, shape, res, tileable=(False, False, False)):
                  c * d[2]:c * d[2] + W]
 
     def ramp(offset, gcorner):
+        count("host_syncs")   # the offset copied to the card
         rel = grid - torch.tensor(offset, dtype=grid.dtype, device=dev)
         return torch.sum(rel * gcorner, dim=3)
 
@@ -110,6 +112,7 @@ def percentile_nosort(x, q):
     high = torch.ceil(qq)
     hw = qq - low
     lw = 1.0 - hw
+    count("host_syncs", 2)
     low_i = int(low.clamp(0, n - 1))
     high_i = int(high.clamp(0, n - 1))
     v_low = torch.kthvalue(xf, low_i + 1).values

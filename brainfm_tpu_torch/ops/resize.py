@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import exact_fp32
+from ..utils.profiling import count
 from .blur import gaussian_blur_3d
 from .coeff import spline_coeff_nd
 from .pushpull import grid_pull, grid_push
@@ -35,6 +36,7 @@ def _zoom_axis_coords(n_in: int, n_out: int, f: float, device):
     host so every device samples at the same coordinates."""
     v = (np.float32((1.0 - f) / (2.0 * f))
          + np.arange(n_out, dtype=np.float32) / np.float32(f))
+    count("host_syncs")   # the coordinates copied to the card
     return torch.from_numpy(np.clip(v, np.float32(0.0),
                                     np.float32(n_in - 1))).to(device)
 

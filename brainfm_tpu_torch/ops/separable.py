@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
+
 
 def linear_resample_matrix(coords, n_in: int, upper=None,
                            mask_oob: bool = False):
@@ -21,6 +23,8 @@ def linear_resample_matrix(coords, n_in: int, upper=None,
     type: the reference tests `coords > 0` under XLA, which flushes
     denormals to zero, so a denormal coordinate is out of bounds there
     (the rule of ops/interp.py::trilinear3d)."""
+    if not (torch.is_tensor(upper) and upper.device == coords.device):
+        count("host_syncs")   # the bound copied to the card
     up = torch.as_tensor(n_in - 1 if upper is None else upper,
                          dtype=torch.float32, device=coords.device)
     tiny = torch.finfo(coords.dtype).tiny

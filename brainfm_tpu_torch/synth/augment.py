@@ -14,6 +14,7 @@ import torch
 
 from ..ops.blur import gaussian_blur_3d
 from ..ops.separable import apply_axis_matrix, linear_resample_matrix
+from ..utils.profiling import count
 from .deform import zoom_from_effective
 from .draws import Draws, to_tensor
 
@@ -46,6 +47,7 @@ def sample_bias_field(draws: Draws, cfg, setup, knobs, bf_scale=None,
     # the static buffer below is sized from cfg.bf_scale_max
     bf_scale = torch.clamp(torch.as_tensor(bf_scale, device=dev),
                            max=cfg.bf_scale_max)
+    count("host_syncs")
     size = torch.tensor(cfg.size, dtype=torch.float32, device=dev)
     eff = torch.round(bf_scale * size)
     eff1 = torch.where(setup["photo_mode"] > 0,
@@ -72,6 +74,7 @@ def resample_resolution(draws: Draws, img, cfg, setup, rnd=None):
     Returns (low-res padded buffer, effective new_size (3,)). `rnd`:
     optional injected blur jitter."""
     dev = img.device
+    count("host_syncs", 2)   # the two host tables copied to the card
     res_td = torch.tensor(cfg.res_training_data, dtype=torch.float32,
                           device=dev)
     if rnd is None:
@@ -126,6 +129,7 @@ def augment_chain(draws: Draws, img, cfg, setup, knobs,
           for k, v in (overrides or {}).items()}
     aux = {}
     x = img
+    count("host_syncs", 2)   # cfg.size copied to the card, twice
     new_size = torch.tensor(cfg.size, dtype=torch.float32, device=img.device)
     for step in steps:
         if step == "gamma":

@@ -292,16 +292,14 @@ class SynthDataset:
                                                mode)
         return self._knobs[mode]
 
-    def get(self, idx: int, generator=None, draws=None, record=None,
-            stats=None):
+    def get(self, idx: int, generator=None, draws=None, record=None):
         """One training item of subject idx: (target, samples[S, ...]).
-        generator/draws/record/stats: as synth_item's."""
+        generator/draws/record: as synth_item's."""
         subject = self.bank.to_device(idx, self.device)
         mode = choose_modality(self._rng, self.input_prob, set(subject))
         subject = self._prep_subject(subject, mode)
         return synth_item(generator, subject, self.static, self.tasks, mode,
-                          self._knobs_for(mode), draws=draws, record=record,
-                          stats=stats)
+                          self._knobs_for(mode), draws=draws, record=record)
 
     def get_group(self, idxs, load=None):
         """The subjects and modality of a grouped batch, as the JAX

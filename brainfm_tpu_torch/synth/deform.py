@@ -16,6 +16,7 @@ import torch
 
 from ..ops.separable import apply_axis_matrix, linear_resample_matrix
 from ..ops.warp import warp_volume
+from ..utils.profiling import count
 from .draws import Draws
 
 
@@ -49,6 +50,7 @@ def random_affine(draws: Draws, cfg, shp):
             - cfg.max_scaling)
     sfd = torch.prod(scal) ** (1.0 / 3.0)
     A = make_affine_matrix(rot, shear, scal)
+    count("host_syncs")
     size = torch.tensor(cfg.size, dtype=torch.float32, device=shp.device)
     if cfg.random_shift:
         max_shift = ((shp - size) / 2.0).clamp(min=0.0)
@@ -96,6 +98,7 @@ def random_nonlinear_field(draws: Draws, cfg, setup,
     dev = draws.device
     nonlin_scale = (cfg.nonlin_scale_min + draws.uniform("scale_u")
                     * (cfg.nonlin_scale_max - cfg.nonlin_scale_min))
+    count("host_syncs")
     size = torch.tensor(cfg.size, dtype=torch.float32, device=dev)
     eff = torch.round(nonlin_scale * size)
     photo = setup["photo_mode"]
@@ -107,6 +110,8 @@ def random_nonlinear_field(draws: Draws, cfg, setup,
     nonlin_std = cfg.nonlin_std_max * draws.uniform("std_u")
     fsmall = nonlin_std * draws.normal("small_n", (*buf_shape, 3))
     F = zoom_from_effective(fsmall, eff, cfg.size)
+    if torch.is_tensor(photo):
+        count("host_syncs")
     if photo > 0:
         F[..., 1] = 0.0
     if need_inverse:
@@ -144,6 +149,7 @@ def deform_grid(cfg, shp, A, c2, F=None):
     xx, yy, zz = torch.meshgrid(
         *[torch.arange(s, dtype=torch.float32, device=dev) for s in size],
         indexing="ij")
+    count("host_syncs")
     c = (torch.tensor(size, dtype=torch.float32, device=dev) - 1) / 2.0
     xc, yc, zc = xx - c[0], yy - c[1], zz - c[2]
     if F is not None:

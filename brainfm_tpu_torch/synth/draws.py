@@ -13,11 +13,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 def to_tensor(v, dtype, device):
-    """An injected value (tensor, numpy array or number) as a tensor."""
+    """An injected value (tensor, numpy array or number) as a tensor; one
+    taken from the host is one host sync (utils/profiling.py)."""
     if isinstance(v, torch.Tensor):
+        d = torch.device(device)
+        if v.device.type != d.type or d.index not in (None, v.device.index):
+            count("host_syncs")
         return v.to(device=device, dtype=dtype)
+    count("host_syncs")
     return torch.tensor(np.asarray(v), dtype=dtype, device=device)
 
 

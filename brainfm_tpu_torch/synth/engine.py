@@ -18,7 +18,6 @@ port's codec (runtime/loader.py).
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from functools import lru_cache
 from typing import Sequence
@@ -29,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..ops.lut import lut_apply
 from ..ops.warp import warp_labels, warp_volume
+from ..utils.profiling import annotate, count
 from .augment import augment_chain
 from .constants import (LABELS_EXTRACEREBRAL, LABELS_LEFT, build_lut,
                         build_vflip)
@@ -40,9 +40,23 @@ from .pathology import (augment_pathology, binarize, encode_pathology,
                         pathology_direction, random_shape)
 
 
+def _on(flag) -> bool:
+    """flag > 0 on the host: a drawn tensor's is one host sync."""
+    if torch.is_tensor(flag):
+        count("host_syncs")
+    return bool(flag > 0)
+
+
+def _to(table, dev):
+    """A host table copied to `dev`: one host sync (the copy from pageable
+    memory waits for the card's queue)."""
+    count("host_syncs")
+    return torch.from_numpy(table).to(dev)
+
+
 def _flip0(x, flip):
     """Sagittal flip (axis 0) when the flip draw is on."""
-    return torch.flip(x, (0,)) if flip > 0 else x
+    return torch.flip(x, (0,)) if _on(flip) else x
 
 
 def _one_hot(lab, n: int):
@@ -86,59 +100,42 @@ def _target_segmentation(seg, grid, flip, lut, vflip, hemis_mask=None,
     if deform_one_hots:
         onehot = _one_hot(sc, int(vflip.shape[0]))
         sd = warp_volume(onehot, grid)
-        return torch.flip(sd, (0,))[..., vflip.long()] if flip > 0 else sd
+        return torch.flip(sd, (0,))[..., vflip.long()] if _on(flip) else sd
     scd = warp_labels(sc, grid)
     # flip(onehot(l))[..., vflip] == onehot(vflip[flip(l)]): vflip is the
     # half-swap involution
-    lab = lut_apply(vflip, torch.flip(scd, (0,))) if flip > 0 else scd
+    lab = lut_apply(vflip, torch.flip(scd, (0,))) if _on(flip) else scd
     return _one_hot(lab, int(vflip.shape[0]))
 
 
-class _Clock:
-    """Phase times into `stats` (no-op without stats)."""
-
-    def __init__(self, dev, stats):
-        self.dev, self.stats = dev, stats
-        self.t0 = time.perf_counter()
-
-    def lap(self, key):
-        if self.stats is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        t = time.perf_counter()
-        self.stats[key] = self.stats.get(key, 0.0) + (t - self.t0) * 1e3
-        self.t0 = t
-
-
-def _target_pathology(draws: Draws, subject, grid, setup, cfg, stats=None):
+def _target_pathology(draws: Draws, subject, grid, setup, cfg):
     """(P, Pprob), each (*size, 1): with pathol_mode on, a random Perlin
     shape (pathol_random_shape, or no lesion file) or the subject's lesion
     probability warped by K1, advected when cfg.augment_pathology, then
     binarized; both zero when pathol_mode is off or the shape is below
-    cfg.pathol_tol. `stats` receives the advection's counts and phase
-    times (ms on the host clock, synchronized on the card)."""
+    cfg.pathol_tol. Spans `gen.shape` or `gen.lesion_warp`, and
+    `gen.advect` (utils/profiling.py)."""
     size = tuple(grid[0].shape)
     dev = grid[0].device
-    on = bool(setup["pathol_mode"] > 0)
+    on = _on(setup["pathol_mode"])
     if on:
-        clock = _Clock(dev, stats)
-        use_random = (bool(setup["pathol_random_shape"] > 0)
+        use_random = (_on(setup["pathol_random_shape"])
                       or "pathol_prob" not in subject)
         if use_random:
-            pdef, _ = random_shape(draws.sub("shape"), size, cfg)
-            clock.lap("shape_ms")
+            with annotate("gen.shape"):
+                pdef, _ = random_shape(draws.sub("shape"), size, cfg)
         else:
-            pdef = warp_volume(torch.nan_to_num(
-                subject["pathol_prob"]).contiguous(), grid)
-            clock.lap("lesion_warp_ms")
+            with annotate("gen.lesion_warp"):
+                pdef = warp_volume(torch.nan_to_num(
+                    subject["pathol_prob"]).contiguous(), grid)
         if cfg.augment_pathology:
-            pdef = augment_pathology(draws.sub("augment"), pdef, cfg,
-                                     stats=stats)
-            clock.lap("advect_ms")
+            with annotate("gen.advect"):
+                pdef = augment_pathology(draws.sub("augment"), pdef, cfg)
     else:
         pdef = torch.zeros(size, device=dev)
     p = binarize(pdef, cfg.pathol_thres)
+    if on:
+        count("host_syncs")
     alive = on and bool(torch.mean(p) > cfg.pathol_tol)
     if not alive:
         p, pdef = torch.zeros_like(p), torch.zeros_like(pdef)
@@ -146,7 +143,7 @@ def _target_pathology(draws: Draws, subject, grid, setup, cfg, stats=None):
 
 
 def make_targets(subject, grid, setup, sfd, cfg, tasks, extra=None,
-                 hemis_mask=None, draws=None, stats=None):
+                 hemis_mask=None, draws=None):
     """Deform every requested target. All trilinear targets, plus `extra`
     channels (the synthetic contrasts and, with pathology, their masked
     copies), are stacked channel-wise into ONE fused warp with per-channel
@@ -156,8 +153,8 @@ def make_targets(subject, grid, setup, sfd, cfg, tasks, extra=None,
     left = cfg.left_hemis_only
     dev = grid[0].device
     _, lut_np, vflip_np = _label_tables(left)
-    lut = torch.from_numpy(lut_np).to(dev)
-    vflip = torch.from_numpy(vflip_np).to(dev)
+    lut = _to(lut_np, dev)
+    vflip = _to(vflip_np, dev)
 
     if hemis_mask is None:
         hemis_mask = _hemis_mask_src(subject, cfg, lut)
@@ -245,7 +242,7 @@ def make_targets(subject, grid, setup, sfd, cfg, tasks, extra=None,
             cfg.deform_one_hots)
     if "dist" in warped:
         chans = [warped["dist"][..., c] for c in range(n_dist)]
-        if not left and flip > 0:
+        if not left and _on(flip):
             lp, lw, rp, rw = (torch.flip(c, (0,)) for c in chans)
             chans = [rp, rw, lp, lw]
         out = torch.stack(chans, dim=-1)
@@ -253,14 +250,15 @@ def make_targets(subject, grid, setup, sfd, cfg, tasks, extra=None,
                                                cfg.max_surf_distance)
     if "reg" in warped:
         rx, ry, rz = (warped["reg"][..., c] for c in range(3))
-        if flip > 0:
+        if _on(flip):
             rx, ry, rz = (-torch.flip(rx, (0,)), torch.flip(ry, (0,)),
                           torch.flip(rz, (0,)))
         target["registration"] = torch.stack([rx, ry, rz], dim=-1)
     if "pathology" in tasks:
-        p, pprob = _target_pathology(
-            draws if draws is not None else Draws(device=dev), subject,
-            grid, setup, cfg, stats)
+        with annotate("gen.pathology"):
+            p, pprob = _target_pathology(
+                draws if draws is not None else Draws(device=dev), subject,
+                grid, setup, cfg)
         target["pathology"] = p
         target["pathology_prob"] = pprob
     if "age" in tasks and "age" in subject:
@@ -345,8 +343,10 @@ def _synth_sample(draws: Draws, syn, keep, pathol_dir, subject, cfg, setup,
         # renormalized, so the blend stays unit-sum
         for i, t in enumerate(("T1", "T2", "FLAIR"), start=1):
             if t not in subject or t not in target:
+                count("host_syncs")
                 v[i] = 0.0
         v = v / v.sum()
+        count("host_syncs")
         if mix:
             mixed = v[0] * syn
             # targets are flipped when setup.flip: unflip them to mix
@@ -365,7 +365,7 @@ def _synth_sample(draws: Draws, syn, keep, pathol_dir, subject, cfg, setup,
 
 def synth_item(generator, subject: dict, cfg: SynthStatic,
                tasks: Sequence[str], input_mode: str, knobs_stack,
-               draws=None, record=None, stats=None):
+               draws=None, record=None):
     """Generate one training item: (target dict, samples dict stacked on a
     leading S axis). `input_mode` in {'synth','T1','T2','FLAIR','CT'};
     knobs_stack leaves have leading dim cfg.all_samples.
@@ -373,35 +373,44 @@ def synth_item(generator, subject: dict, cfg: SynthStatic,
     generator: torch.Generator on the subject's device (None: PyTorch's
     default one). draws: optional nested dict of injected draws, by the
     names the random functions use; record: optional dict that receives
-    every draw made, so `draws=record` replays the item. stats: optional
-    dict that receives the pathology target's phase times and advection
-    counts."""
-    tasks = tuple(tasks)
+    every draw made, so `draws=record` replays the item. The item is the
+    span `gen.item` (a unit of work, utils/profiling.py) over `gen.setup`,
+    `gen.deform`, `gen.synth`, `gen.targets` and one `gen.sample` a
+    sample."""
+    with annotate("gen.item", unit=True):
+        return _synth_item(generator, subject, cfg, tuple(tasks),
+                           input_mode, knobs_stack, draws, record)
+
+
+def _synth_item(generator, subject, cfg, tasks, input_mode, knobs_stack,
+                draws, record):
     dev = subject["gen"].device
     d = Draws(generator, dev, draws, record)
-    setup = sample_setup(d.sub("setup"), cfg)
     shp = subject["shape"]
-    sfd, A, c2 = random_affine(d.sub("affine"), cfg, shp)
-    F = Fneg = None
-    if cfg.nonlinear_transform:
-        F, Fneg = random_nonlinear_field(d.sub("field"), cfg, setup,
-                                         need_inverse="surface" in tasks)
-    grid = deform_grid(cfg, shp, A, c2, F)
+    with annotate("gen.setup"):
+        setup = sample_setup(d.sub("setup"), cfg)
+        sfd, A, c2 = random_affine(d.sub("affine"), cfg, shp)
+    with annotate("gen.deform"):
+        F = Fneg = None
+        if cfg.nonlinear_transform:
+            F, Fneg = random_nonlinear_field(d.sub("field"), cfg, setup,
+                                             need_inverse="surface" in tasks)
+        grid = deform_grid(cfg, shp, A, c2, F)
 
     S = cfg.all_samples
-    _, lut_np, _ = _label_tables(cfg.left_hemis_only)
-    hemis_mask = _hemis_mask_src(subject, cfg,
-                                 torch.from_numpy(lut_np).to(dev))
-    extra = pathol_dir = None
-    if input_mode == "synth":
-        extra, pathol_dir = _synth_volumes(d.sub("synth"), subject, cfg,
-                                           setup, tasks, hemis_mask)
+    with annotate("gen.synth"):
+        _, lut_np, _ = _label_tables(cfg.left_hemis_only)
+        hemis_mask = _hemis_mask_src(subject, cfg, _to(lut_np, dev))
+        extra = pathol_dir = None
+        if input_mode == "synth":
+            extra, pathol_dir = _synth_volumes(d.sub("synth"), subject, cfg,
+                                               setup, tasks, hemis_mask)
 
-    target, extra_warped = make_targets(subject, grid, setup, sfd, cfg,
-                                        tasks, extra=extra,
-                                        hemis_mask=hemis_mask,
-                                        draws=d.sub("pathology"),
-                                        stats=stats)
+    with annotate("gen.targets"):
+        target, extra_warped = make_targets(subject, grid, setup, sfd, cfg,
+                                            tasks, extra=extra,
+                                            hemis_mask=hemis_mask,
+                                            draws=d.sub("pathology"))
 
     if input_mode != "synth":
         # the real image is warped once: all S samples share the grid
@@ -411,21 +420,24 @@ def synth_item(generator, subject: dict, cfg: SynthStatic,
         idef_real = warp_volume(v.contiguous(), grid, approx=cfg.approx_warp)
     samples = []
     for i in range(S):
-        di = d.sub("samples", i)
-        knobs = {k: torch.as_tensor(a, dtype=torch.float32).to(dev)[i]
-                 for k, a in knobs_stack.items()}
-        if input_mode == "synth":
-            keep = ((extra_warped[..., S + i] != 0).float()[..., None]
-                    if "pathology" in tasks else None)
-            sample = _synth_sample(
-                di, extra_warped[..., i], keep,
-                None if pathol_dir is None else pathol_dir[i], subject, cfg,
-                setup, knobs, tasks, target)
-        else:
-            sample = _finish_sample(
-                di, idef_real, cfg, setup, knobs, tasks, target,
-                pathology_direction(di, input_mode)
-                if "pathology" in tasks else None, input_mode)
+        with annotate("gen.sample"):
+            di = d.sub("samples", i)
+            count("host_syncs", sum(not torch.is_tensor(a) or a.device != dev
+                                    for a in knobs_stack.values()))
+            knobs = {k: torch.as_tensor(a, dtype=torch.float32).to(dev)[i]
+                     for k, a in knobs_stack.items()}
+            if input_mode == "synth":
+                keep = ((extra_warped[..., S + i] != 0).float()[..., None]
+                        if "pathology" in tasks else None)
+                sample = _synth_sample(
+                    di, extra_warped[..., i], keep,
+                    None if pathol_dir is None else pathol_dir[i], subject,
+                    cfg, setup, knobs, tasks, target)
+            else:
+                sample = _finish_sample(
+                    di, idef_real, cfg, setup, knobs, tasks, target,
+                    pathology_direction(di, input_mode)
+                    if "pathology" in tasks else None, input_mode)
         samples.append(sample)
 
     # the surface task's deformation state, for the mesh warp of

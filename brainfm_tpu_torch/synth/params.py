@@ -8,6 +8,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import count
 from .draws import Draws
 
 
@@ -137,6 +138,8 @@ def _aug_steps(cfg, mode: str):
 
 
 def _f32(values, device):
+    """A host table on `device`: one host sync."""
+    count("host_syncs")
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 

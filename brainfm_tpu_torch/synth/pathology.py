@@ -14,6 +14,7 @@ import torch
 from ..ops.ode import odeint_masked_final
 from ..ops.pde import advect_rhs
 from ..ops.perlin import shape_3d, velocity_3d
+from ..utils.profiling import count
 from .draws import Draws
 
 
@@ -32,14 +33,14 @@ def random_shape(draws: Draws, size, cfg):
     return prob, mask
 
 
-def augment_pathology(draws: Draws, pprob, cfg, stats=None):
+def augment_pathology(draws: Draws, pprob, cfg):
     """Advect the lesion probability by a random divergence-free velocity
     for a random number nt in [1, max_nt] of dt steps; nt <= 1 leaves it
-    as it is. `stats` receives the ODE solver's counts (ops/ode.py) and
-    `nt`."""
+    as it is. The counter `ode.nt` takes nt (utils/profiling.py), beside
+    the solver's (ops/ode.py)."""
+    count("host_syncs")
     nt = int(draws.randint("nt", 1, cfg.max_nt + 1))
-    if stats is not None:
-        stats["nt"] = nt
+    count("ode.nt", nt)
     if nt <= 1:
         return pprob
     v = velocity_3d(draws.sub("velocity"), pprob.shape, cfg.perlin_res,
@@ -51,7 +52,7 @@ def augment_pathology(draws: Draws, pprob, cfg, stats=None):
     npdt = np.float64 if pprob.dtype == torch.float64 else np.float32
     ts = np.arange(cfg.max_nt).astype(npdt) * npdt(cfg.dt)
     return odeint_masked_final(f, pprob, ts, nt, dt=cfg.dt,
-                               method=cfg.integ_method, stats=stats)
+                               method=cfg.integ_method)
 
 
 def encode_pathology(draws: Draws, img, P, Pprob, pathol_direction):

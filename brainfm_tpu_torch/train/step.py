@@ -24,6 +24,10 @@ gradient of the global batch; a model sharded with FSDP2, whose
 reduce-scatter averages over 'data', takes 1/space and an all_reduce over
 'space'. The gradient is clipped afterwards, as the JAX package clips the
 global gradient. The non-finite skip is one decision for every rank.
+
+A step is the span `step` over `step.forward` (the losses), `step.backward`,
+`step.check` (the non-finite check, up to its host sync) and
+`step.update` (clip and optimizer), utils/profiling.py.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..models.criterion import weighted_total
 from ..parallel.fsdp import is_sharded
 from ..parallel.mesh import axis_size
 from ..parallel.spatial import gather_outputs, slab_of, space_scope
+from ..utils.profiling import annotate, count
 
 
 @dataclass
@@ -275,42 +280,48 @@ def _finite_update(state: TrainState, total, losses, lr, wd, clip,
     losses are reduced first and the skip is decided for every rank at
     once (a MAX of the non-finite flag over the world)."""
     model, optimizer = state.model, state.optimizer
-    params = [p for p in model.parameters() if p.requires_grad]
-    for p in params:
-        if p.grad is None:   # a parameter the losses did not reach
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    if mesh is not None:
-        total, losses = _reduce_over_mesh(grads, total, losses, mesh)
-    total = torch.as_tensor(total)
-    ok = torch.stack([torch.isfinite(total).all()]
-                     + [torch.isfinite(_local(g)).all() for g in grads]).all()
-    if mesh is not None:
-        import torch.distributed as dist
+    with annotate("step.check"):
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:   # a parameter the losses did not reach
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if mesh is not None:
+            total, losses = _reduce_over_mesh(grads, total, losses, mesh)
+        total = torch.as_tensor(total)
+        ok = torch.stack([torch.isfinite(total).all()]
+                         + [torch.isfinite(_local(g)).all()
+                            for g in grads]).all()
+        if mesh is not None:
+            import torch.distributed as dist
 
-        bad = (~ok).to(total.dtype if total.is_floating_point()
-                       else torch.float32).reshape(1)
-        dist.all_reduce(bad, op=dist.ReduceOp.MAX)
-        ok = bad[0] == 0
-    finite = bool(ok)
+            bad = (~ok).to(total.dtype if total.is_floating_point()
+                           else torch.float32).reshape(1)
+            dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+            ok = bad[0] == 0
+        count("host_syncs")
+        finite = bool(ok)
     dev = total.device
-    if finite:
-        if clip is not None:
-            clip(grads)
-        for group in optimizer.param_groups:
-            group["lr"] = float(lr)
-            if isinstance(optimizer, _DECOUPLED_WD):
-                group["weight_decay"] = float(wd)
-        optimizer.step()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss_total"] = total.detach()
-    else:
-        nan = torch.tensor(float("nan"), device=dev)
-        metrics = {k: nan for k in losses}
-        metrics["loss_total"] = nan
-    metrics["skipped"] = torch.tensor(0.0 if finite else 1.0, device=dev)
-    optimizer.zero_grad(set_to_none=True)
+    with annotate("step.update"):
+        if finite:
+            if clip is not None:
+                clip(grads)
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr)
+                if isinstance(optimizer, _DECOUPLED_WD):
+                    group["weight_decay"] = float(wd)
+            optimizer.step()
+            state.step += 1
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["loss_total"] = total.detach()
+        else:
+            count("host_syncs")
+            nan = torch.tensor(float("nan"), device=dev)
+            metrics = {k: nan for k in losses}
+            metrics["loss_total"] = nan
+        count("host_syncs")
+        metrics["skipped"] = torch.tensor(0.0 if finite else 1.0, device=dev)
+        optimizer.zero_grad(set_to_none=True)
     return state, metrics
 
 
@@ -344,15 +355,21 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
             axis_size(mesh, "data") * n)
 
     def losses_and_total(model, batch):
-        losses = batch_losses(model, cfg, loss_fn, batch, amp, critic,
-                              critic_image_key,
-                              detach_stage0=not train_stage0, mesh=mesh)
-        return weighted_total(losses, weight_dict), losses
+        with annotate("step.forward"):
+            losses = batch_losses(model, cfg, loss_fn, batch, amp, critic,
+                                  critic_image_key,
+                                  detach_stage0=not train_stage0, mesh=mesh)
+            return weighted_total(losses, weight_dict), losses
 
     def backward(t, model):
-        (t if mesh is None else t * scale(model)).backward()
+        with annotate("step.backward"):
+            (t if mesh is None else t * scale(model)).backward()
 
     def step(state: TrainState, batch, lr, wd):
+        with annotate("step"):
+            return one_step(state, batch, lr, wd)
+
+    def one_step(state: TrainState, batch, lr, wd):
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)

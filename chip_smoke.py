@@ -241,6 +241,7 @@ from brainfm_tpu_torch.train import (build_optimizer, build_schedules,
                                      make_twostage_train_step,
                                      save_checkpoint, train)
 from brainfm_tpu_torch.train.step import TrainState, batch_losses
+from brainfm_tpu_torch.utils import profiling
 from brainfm_tpu_torch.utils.nifti import load_nifti, save_nifti
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1816,9 +1817,11 @@ def check_stream_reference(dev, tmp):
         gds, cds = sets[dev][name], sets["cpu"][name]
         gds.reseed(0)
         cds.reseed(0)
-        rec, st = {}, {}
-        tg, sg = gds.get(0, torch.Generator(dev).manual_seed(5), record=rec,
-                         stats=st)
+        rec = {}
+        with profiling.recording():
+            tg, sg = gds.get(0, torch.Generator(dev).manual_seed(5),
+                             record=rec)
+        st = item_record()
         tc, sc = cds.get(0, draws=rec)
         stats[name] = st
         inputs.append(sg["input"])
@@ -1973,13 +1976,35 @@ def run_stream(dev, power, tmp):
     return launches, root, {**figs, "peak_mem_gib": peak}
 
 
+# the generator's pathology spans and the solver's counters, under the keys
+# the smoke phases report (utils/profiling.py)
+_ITEM_SPANS = {"gen.shape": "shape_ms", "gen.lesion_warp": "lesion_warp_ms",
+               "gen.advect": "advect_ms"}
+_ITEM_COUNTS = {"ode.nt": "nt", "ode.steps": "steps",
+                "ode.rejected": "rejected", "ode.evals": "evals"}
+
+
+def item_record() -> dict:
+    """The last recording's pathology stages (ms of host time, not
+    synchronized) and solver counts."""
+    out = {}
+    for s in profiling.SPANS:
+        if s.name in _ITEM_SPANS and s.t1 is not None:
+            k = _ITEM_SPANS[s.name]
+            out[k] = out.get(k, 0.0) + (s.t1 - s.t0) / 1e6
+    out.update({v: profiling.COUNTS[k] for k, v in _ITEM_COUNTS.items()
+                if k in profiling.COUNTS})
+    return out
+
+
 def run_pathology(dev, power):
     """PATHOLOGY_ITEMS items of the shape_id generator (160^3 from a 192^3
     bank, S=1, dopri5, augment_pathology) with pathology forced on, from a
     random shape and from the subject's lesion file alternately; each
-    item's wall on the host clock split by synth_item's stats into the
-    shape synthesis (or the lesion warp), the advection (with nt and the
-    adaptive steps) and the rest; then the flagship model (joint: f_maps
+    item's wall on the host clock split by the generator's spans
+    (utils/profiling.py, host time) into the shape synthesis (or the
+    lesion warp), the advection (with nt and the adaptive steps) and the
+    rest; then the flagship model (joint: f_maps
     64, L6, bf16, AdamW) on the shape_id tasks trains one step on each
     item. An untimed item and step go first."""
     cfg = train_script.train_config("shape_id", "joint")
@@ -2016,14 +2041,15 @@ def run_pathology(dev, power):
         # a shape can be keep-masked away or advected below pathol_tol:
         # up to 3 draws for a non-empty target, each item timed
         for _ in range(3):
-            st = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            target, samples = synth_item(torch.Generator(dev).manual_seed(
-                seed), subj, scfg, cfg.tasks, "synth", knobs, draws=draws,
-                stats=st)
+            with profiling.recording():
+                target, samples = synth_item(torch.Generator(dev).manual_seed(
+                    seed), subj, scfg, cfg.tasks, "synth", knobs,
+                    draws=draws)
             torch.cuda.synchronize()
             item_ms = (time.perf_counter() - t0) * 1e3
+            st = item_record()
             seed += 1
             parts = sum(st.get(k, 0.0) for k in ("shape_ms", "lesion_warp_ms",
                                                  "advect_ms"))

@@ -28,6 +28,7 @@ from brainfm_tpu_torch.ops import fd, ode, pde, perlin
 from brainfm_tpu_torch.synth import deform, engine, pathology, surface
 from brainfm_tpu_torch.synth.draws import Draws
 from brainfm_tpu_torch.synth.params import SynthStatic
+from brainfm_tpu_torch.utils import profiling
 
 import _jax_draws as jd
 
@@ -206,14 +207,15 @@ def test_odeint_matches_jax_with_step_counts(x64, advection, method):
     ts = np.arange(5) * 0.1
     want = jax.jit(lambda y, t: jode.odeint(jf, y, t, method=method))(
         jnp.asarray(y0), jnp.asarray(ts))
-    stats = {}
-    got = ode.odeint(tf, _t(y0), ts, method=method, stats=stats)
+    with profiling.recording():
+        got = ode.odeint(tf, _t(y0), ts, method=method)
+    stats = profiling.COUNTS
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=FP64_ATOL)
-    assert stats["evals"] == count[0]
+    assert stats["ode.evals"] == count[0]
     if method in ("adams", "dopri5", "tsit5"):
-        assert stats["evals"] == 1 + 6 * stats["steps"]
-        assert stats["steps"] > 4 * 2 and stats["rejected"] >= 1
+        assert stats["ode.evals"] == 1 + 6 * stats["ode.steps"]
+        assert stats["ode.steps"] > 4 * 2 and stats["ode.rejected"] >= 1
 
 
 @pytest.mark.parametrize("method", ["rk4", "dopri5", "tsit5"])
@@ -228,13 +230,14 @@ def test_odeint_masked_final_matches_jax(x64, advection, method):
     for nt in (1, 3, 6):
         count[0] = 0
         want = run(jnp.asarray(y0), jnp.asarray(ts), nt)
-        stats = {}
-        got = ode.odeint_masked_final(tf, _t(y0), ts, nt, dt=0.1,
-                                      method=method, stats=stats)
+        with profiling.recording():
+            got = ode.odeint_masked_final(tf, _t(y0), ts, nt, dt=0.1,
+                                          method=method)
+        stats = profiling.COUNTS
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=FP64_ATOL)
         if method != "rk4":   # the JAX scan runs masked rk4 steps too
-            assert stats["evals"] == count[0], nt
+            assert stats["ode.evals"] == count[0], nt
 
 
 # --------------------------------------------------------------- pathology
@@ -272,11 +275,12 @@ def test_augment_pathology_matches_jax():
     draws = jd.augment_pathology_draws(key, cfg)
     assert int(draws["nt"]) > 1
     want = jpath.augment_pathology(key, jnp.asarray(p0), cfg)
-    stats = {}
-    got = pathology.augment_pathology(
-        Draws(given=draws), _t(p0), SynthStatic(**dataclasses.asdict(cfg)),
-        stats=stats)
-    assert stats["nt"] == int(draws["nt"]) and stats["steps"] > 0
+    with profiling.recording():
+        got = pathology.augment_pathology(
+            Draws(given=draws), _t(p0),
+            SynthStatic(**dataclasses.asdict(cfg)))
+    stats = profiling.COUNTS
+    assert stats["ode.nt"] == int(draws["nt"]) and stats["ode.steps"] > 0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=PROB_ATOL)
 
 
@@ -341,12 +345,13 @@ def test_pathology_item_random_shape_one_hots_matches_jax():
     draws = jd.item_draws(key, jcfg, "synth",
                           {k: np.asarray(v) for k, v in jknobs.items()},
                           (32, 32, 32), tasks=tasks)
-    stats = {}
-    tt, ts = engine.synth_item(None, tbank.to_device(0, "cpu"), tcfg, tasks,
-                               "synth", engine.build_knobs_stack(tcfg,
-                                                                 "synth"),
-                               draws=draws, stats=stats)
-    assert stats["steps"] > 0 and "shape_ms" in stats
+    with profiling.recording():
+        tt, ts = engine.synth_item(None, tbank.to_device(0, "cpu"), tcfg,
+                                   tasks, "synth",
+                                   engine.build_knobs_stack(tcfg, "synth"),
+                                   draws=draws)
+    spans = {s.name for s in profiling.SPANS}
+    assert profiling.COUNTS["ode.steps"] > 0 and "gen.shape" in spans
     assert set(tt) == set(jt)
     p = tt["pathology"].numpy()
     assert p.sum() > 0 and np.mean(p == np.asarray(jt["pathology"])) \

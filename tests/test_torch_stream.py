@@ -31,6 +31,7 @@ from brainfm_tpu_torch.models import build_model
 from brainfm_tpu_torch.models.criterion import make_criterion
 from brainfm_tpu_torch.runtime import loader, native
 from brainfm_tpu_torch.synth import datasets, engine
+from brainfm_tpu_torch.utils import profiling
 from brainfm_tpu_torch.synth.sampler import choose_modality
 from brainfm_tpu_torch.train import loop
 from brainfm_tpu_torch.utils.nifti import save_nifti
@@ -321,9 +322,10 @@ def test_stream_item_matches_jax(data_root):
     jt, js = jds.get(1, key)
     knobs = {k: np.asarray(v) for k, v in jds._knobs[mode].items()}
     draws = jd.item_draws(key, jds.static, mode, knobs, BANK, tasks=tasks)
-    stats = {}
-    tt, ts = tds.get(1, draws=draws, stats=stats)
-    assert "lesion_warp_ms" in stats and stats["steps"] > 0
+    with profiling.recording():
+        tt, ts = tds.get(1, draws=draws)
+    spans = {s.name for s in profiling.SPANS}
+    assert "gen.lesion_warp" in spans and profiling.COUNTS["ode.steps"] > 0
     assert set(tt) == set(jt)
     assert {"surface_svf_neg", "surface_affine_A", "pathology_prob"} <= set(tt)
     p = tt["pathology"].numpy()
