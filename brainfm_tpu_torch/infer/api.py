@@ -244,16 +244,15 @@ class Inferencer:
         return os.path.join(save_dir, os.path.basename(path).split(".nii")[0])
 
     def _write_outputs(self, host, aff, out_dir, ext):
-        """Encode host arrays to NIfTI on a small thread pool; every output
-        but the registration coordinates is clipped at 0. The span
-        `serve.write`."""
+        """Write host arrays as NIfTI, one output a thread of a small pool
+        (utils/nifti.py deflates each .nii.gz in chunks on its own pool);
+        every output but the registration coordinates is clipped at 0. The
+        span `serve.write`."""
         def _write_one(item):
             key, val = item
-            arr = np.asarray(val)[0]
-            arr = np.clip(arr, 0.0, None) if key not in (
-                "regx", "regy", "regz") else arr
-            viewVolume(arr.squeeze(), aff, names=[f"out_{key}"], ext=ext,
-                       save_dir=out_dir)
+            clip = None if key in ("regx", "regy", "regz") else 0.0
+            viewVolume(np.asarray(val)[0], aff, names=[f"out_{key}"], ext=ext,
+                       save_dir=out_dir, clip_min=clip)
 
         with annotate("serve.write"), ThreadPoolExecutor(max_workers=4) as ex:
             list(ex.map(_write_one, host.items()))

@@ -29,7 +29,9 @@ The spans and counters (see PERF.md for the metrics that read them):
   host_syncs: each blocking wait of the host on the card on the training
       and serving path; ode.steps, ode.rejected, ode.evals, ode.nt: the
       adaptive solver's steps (rejected ones included), rejected steps,
-      right-hand-side evaluations and requested intervals (ops/ode.py).
+      right-hand-side evaluations and requested intervals (ops/ode.py);
+      write.chunks: the chunks of a .nii.gz deflated on the writer's
+      thread pool (utils/nifti.py; a one-chunk file adds nothing).
 """
 
 from __future__ import annotations

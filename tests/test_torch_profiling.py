@@ -328,6 +328,19 @@ def test_evaluate_path_records_each_volume(tmp_path, prefetch):
     assert profiling.COUNTS["host_syncs"] > 0
 
 
+@pytest.mark.parametrize("name,depth,chunks", [
+    ("many.nii.gz", 37, 13), ("one.nii.gz", 3, 0), ("many.nii", 37, 0)])
+def test_write_chunks_counts_the_pool_chunks(tmp_path, monkeypatch, name,
+                                             depth, chunks):
+    """`write.chunks`: the chunks a .nii.gz deflated on the pool (here
+    three 40x48 float32 planes each, the last chunk partial)."""
+    monkeypatch.setattr(nifti, "CHUNK_BYTES", 3 * 40 * 48 * 4)
+    with recording():
+        nifti.save_nifti(str(tmp_path / name),
+                         np.ones((40, 48, depth), np.float32))
+    assert profiling.COUNTS.get("write.chunks", 0) == chunks
+
+
 def test_trace_writes_the_spans_and_counters(tmp_path):
     log = str(tmp_path / "trace")
     with profiling.trace(log):
