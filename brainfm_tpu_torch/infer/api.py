@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..device import exact_fp32, resolve_device
-from ..models.build import (build_inpaint_model, build_model, postprocess,
-                            process_outputs)
+from ..models.build import (SERVE_STAGES, build_inpaint_model, build_model,
+                            postprocess, process_outputs)
 from ..models.params_io import from_jax_params, load_pth
 from ..parallel.mesh import axis_index, axis_size, local_slice
 from ..parallel.spatial import gather_outputs, slab_of, space_scope
@@ -461,7 +461,9 @@ class TwoStageInferencer(Inferencer):
     """Two-stage inpainting served as Inferencer serves one model: stage 0
     predicts the pathology mask, stage 1 the task outputs from the masked
     input conditioned on it, then the processors (stage 0's sigmoid kept)
-    and `postprocess` (the label map through K2).
+    and `postprocess` (the label map through K2). Inside `serve.forward`
+    each stage is a span timed on the card, `serve.stage0` and
+    `serve.stage1`.
 
     pathol_ckpt / task_ckpt: a checkpoint directory of the two-stage
     training of the port or of the JAX package (an orbax TrainState whose
@@ -478,7 +480,8 @@ class TwoStageInferencer(Inferencer):
         super().__init__(cfg, None, compute_dtype, exact, device, mesh)
 
     def _build(self, cfg):
-        return build_inpaint_model(cfg, device=self.device)
+        return build_inpaint_model(cfg, device=self.device,
+                                   spans=SERVE_STAGES)
 
     def _load(self, ckpt_path):
         del ckpt_path

@@ -25,7 +25,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.lut import lut_apply
 from ..synth.constants import LABELS_EXTRACEREBRAL, LABELS_LEFT
-from ..utils.profiling import count
+from ..utils.profiling import OFF, annotate, count
 from .heads import TaskHead
 from .params_io import read_state_dict
 from .unet3d import UNet2D, UNet3D, UNet3DSep
@@ -240,17 +240,27 @@ def build_conditioned_model(cfg, device=None):
                        _task_head(cfg, _without_pathology(cfg))).to(dev)
 
 
-def twostage_forward(pathol_model, task_model, x, detach_stage0=False):
+def _stage_span(spans, i, x):
+    return OFF if spans is None else annotate(spans[i], device=x.device)
+
+
+def twostage_forward(pathol_model, task_model, x, detach_stage0=False,
+                     spans=None):
     """The chained two-stage forward: stage 0 predicts the pathology mask
     (its sigmoid); stage 1 sees x * (1 - mask) conditioned on the mask.
     Returns stage 1's outputs with 'pathology' (the mask), 'feat_pathol'
     and 'feat_task' (each stage's feature levels). `detach_stage0`: no
-    gradient flows through stage 0 (its parameters get none)."""
-    out_p = pathol_model(x)
-    pathol = torch.sigmoid(out_p["pathology"])
+    gradient flows through stage 0 (its parameters get none). `spans`:
+    the names of two spans (utils/profiling.py, timed on the card) around
+    stage 0 with its sigmoid and around stage 1 with the masking, or
+    None. The hand-off stays on the card."""
+    with _stage_span(spans, 0, x):
+        out_p = pathol_model(x)
+        pathol = torch.sigmoid(out_p["pathology"])
     if detach_stage0:
         pathol = pathol.detach()
-    out_t = task_model(x * (1.0 - pathol), cond=pathol)
+    with _stage_span(spans, 1, x):
+        out_t = task_model(x * (1.0 - pathol), cond=pathol)
     out = dict(out_t)
     out["pathology"] = pathol
     out["feat_pathol"] = out_p["feat"]
@@ -262,24 +272,33 @@ class TwoStage(nn.Module):
     """The two-stage pair as one module: `pathol` (stage 0, a Joiner with
     the pathology head) and `task` (stage 1, a Joiner one mask channel
     wider, with every other head). forward(x) is twostage_forward; its
-    'pathology' output is already a sigmoid (process_outputs keeps it)."""
+    'pathology' output is already a sigmoid (process_outputs keeps it).
+    `spans`: twostage_forward's span names (a served pair's are
+    SERVE_STAGES), or None."""
 
-    def __init__(self, pathol, task):
+    def __init__(self, pathol, task, spans=None):
         super().__init__()
         self.pathol = pathol
         self.task = task
+        self.spans = spans
 
     def forward(self, x, cond=None, detach_stage0=False):
         if cond is not None:
             raise ValueError("a two-stage model conditions stage 1 on stage "
                              "0's mask; it takes no cond")
-        return twostage_forward(self.pathol, self.task, x, detach_stage0)
+        return twostage_forward(self.pathol, self.task, x, detach_stage0,
+                                self.spans)
 
 
-def build_inpaint_model(cfg, device=None):
+# the spans of a served pair's stages, inside `serve.forward`
+SERVE_STAGES = ("serve.stage0", "serve.stage1")
+
+
+def build_inpaint_model(cfg, device=None, spans=None):
     """Two-stage inpainting for an 'a+b' backbone (twostage.yaml: stage 0
     on backbone a predicts pathology; stage 1 on backbone b, its input one
-    channel wider for the mask). Returns (cfg, TwoStage)."""
+    channel wider for the mask); `spans` as TwoStage's. Returns (cfg,
+    TwoStage)."""
     dev = resolve_device(device)
     cfg = process_args(cfg)
     names = (cfg.backbone or "unet3d+unet3d").split("+")
@@ -287,7 +306,7 @@ def build_inpaint_model(cfg, device=None):
                     _task_head(cfg, {"pathology": 1}))
     task = Joiner(build_backbone(cfg, names[-1], cond_channels=1),
                   _task_head(cfg, _without_pathology(cfg)))
-    return cfg, TwoStage(pathol, task).to(dev)
+    return cfg, TwoStage(pathol, task, spans).to(dev)
 
 
 def build_pathol_critic(f_maps: int = 64, num_levels: int = 5, remat=False):

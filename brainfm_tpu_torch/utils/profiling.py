@@ -20,9 +20,18 @@ prefetch and writer threads of `Inferencer.evaluate_path`). `unit=True`
 starts a unit of work (a generated item, a served volume): the span takes
 a new id and every span below it inherits it.
 
+`annotate(name, device=dev)` on a CUDA `dev` also times the span on the
+card: on, it records a CUDA event on the device's current stream at the
+span's start and at its end, and `Span.device_ms()` resolves the pair
+once the work is done (after the measured window: it waits for the second
+event). Recording an event does not synchronize. Off, it is the same one
+flag check; on another device the span has no device time.
+
 The spans and counters (see PERF.md for the metrics that read them):
   serve.volume > serve.read, serve.prepare, serve.forward, serve.fetch,
       serve.write                                    (infer/)
+  serve.forward > serve.stage0, serve.stage1: the two stages of a served
+      two-stage pair, each timed on the card         (models/build.py)
   gen.item > gen.setup, gen.deform, gen.synth, gen.targets > gen.pathology
       > gen.shape | gen.lesion_warp, gen.advect; gen.sample (synth/)
   step > step.forward, step.backward, step.check, step.update (train/)
@@ -80,14 +89,20 @@ OFF = _Off()
 class Span:
     """One recorded span: `name`, `t0`/`t1` (time.time_ns), `parent` (a
     Span or None), `unit` (the id of its item or volume, or None) and
-    `tid` (the native id of the thread that opened it)."""
+    `tid` (the native id of the thread that opened it); with a CUDA
+    `device`, the pair of CUDA events that `device_ms()` reads."""
     __slots__ = ("name", "t0", "t1", "parent", "unit", "tid", "_new",
-                 "_prev", "_rf")
+                 "_prev", "_rf", "_events")
 
-    def __init__(self, name, unit):
+    def __init__(self, name, unit, device=None):
         self.name, self._new = name, unit
         self.t0 = self.t1 = self.unit = self.parent = None
         self._prev = self._rf = None
+        self._events = None
+        dev = None if device is None else torch.device(device)
+        if dev is not None and dev.type == "cuda":
+            self._events = (dev, torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
 
     def open(self):
         """Start the span without making it the thread's parent (a span
@@ -98,10 +113,28 @@ class Span:
         self.tid = threading.get_native_id()
         SPANS.append(self)
         self.t0 = time.time_ns()
+        self._record(1)
         return self
 
     def close(self):
+        self._record(2)
         self.t1 = time.time_ns()
+
+    def _record(self, i):
+        """Record the start (1) or end (2) event on the current stream."""
+        if self._events is not None:
+            self._events[i].record(torch.cuda.current_stream(
+                self._events[0]))
+
+    def device_ms(self):
+        """Milliseconds of the card's stream between the span's start and
+        end, or None for a span without device timing or not yet closed.
+        Waits for the end event: read it after the measured work."""
+        if self._events is None or self.t1 is None:
+            return None
+        _, start, end = self._events
+        end.synchronize()
+        return start.elapsed_time(end)
 
     def __enter__(self):
         self.open()
@@ -133,13 +166,14 @@ class _Within:
         return False
 
 
-def annotate(name: str, unit: bool = False):
+def annotate(name: str, unit: bool = False, device=None):
     """A span named `name` around the block (or, with `.open()` and
     `.close()`, across threads), under the span open on this thread;
-    `unit=True` starts a new unit of work. Off: `OFF`."""
+    `unit=True` starts a new unit of work; a CUDA `device` times it on
+    that card's current stream too. Off: `OFF`."""
     if not (_forced or _tap._is_profiler_enabled):
         return OFF
-    return Span(name, unit)
+    return Span(name, unit, device)
 
 
 def within(span):

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from brainfm_tpu_torch.config import AttrDict
-from brainfm_tpu_torch.infer.api import Inferencer
+from brainfm_tpu_torch.infer.api import Inferencer, TwoStageInferencer
 from brainfm_tpu_torch.models import build_model
 from brainfm_tpu_torch.models.criterion import make_criterion
 from brainfm_tpu_torch.scripts.train import train_config
@@ -272,12 +272,17 @@ def test_item_and_step_record_their_spans_and_counts():
     assert c["host_syncs"] > c["ode.steps"]
 
 
-def _tiny_inferencer(device):
-    cfg = dict(task={t: True for t in ("T1", "segmentation")},
+def _tiny_inferencer(device, pair=False):
+    """One UNet3D with T1 and segmentation heads, or with `pair` the
+    two-stage pair (its stage 0 the pathology head) served alike."""
+    tasks = ("T1", "segmentation") + (("pathology",) if pair else ())
+    cfg = dict(task={t: True for t in tasks},
                generator={"size": [24, 24, 24]}, losses={"uncertainty": None},
-               backbone="unet3d", f_maps=8, num_levels=2, num_groups=8,
-               layer_order="gcl", unit_feat=False, task_f_maps=[8])
-    return Inferencer(AttrDict.from_nested(cfg), device=device)
+               backbone="unet3d+unet3d" if pair else "unet3d", f_maps=8,
+               num_levels=2, num_groups=8, layer_order="gcl",
+               unit_feat=False, task_f_maps=[8])
+    cls = TwoStageInferencer if pair else Inferencer
+    return cls(AttrDict.from_nested(cfg), device=device)
 
 
 def _heads(tmp_path, n):
@@ -326,6 +331,35 @@ def test_evaluate_path_records_each_volume(tmp_path, prefetch):
         assert all(s.tid == vols[0].tid for s in profiling.SPANS
                    if s.name != "serve.write")
     assert profiling.COUNTS["host_syncs"] > 0
+
+
+def test_twostage_stages_nest_inside_serve_forward(tmp_path):
+    inf = _tiny_inferencer("cpu", pair=True)
+    (path,) = _heads(tmp_path, 1)
+    with recording():
+        inf.evaluate_path([path], str(tmp_path / "on"), win_size=(24,) * 3)
+    spans = list(profiling.SPANS)
+    fwd = next(s for s in spans if s.name == "serve.forward")
+    stages = [s for s in spans if s.name.startswith("serve.stage")]
+    assert _names(stages) == ["serve.stage0", "serve.stage1"]
+    assert all(s.parent is fwd and s.unit == fwd.unit for s in stages)
+    assert fwd.t0 <= stages[0].t0 <= stages[0].t1 <= stages[1].t0 \
+        <= stages[1].t1 <= fwd.t1
+    assert all(s.device_ms() is None for s in stages)   # no card here
+    inf.evaluate_path([path], str(tmp_path / "off"), win_size=(24,) * 3)
+    assert profiling.SPANS == spans
+
+
+def test_a_twostage_volume_counts_the_host_syncs_of_one_model(tmp_path):
+    (path,) = _heads(tmp_path, 1)
+    counted = []
+    for pair in (False, True):
+        inf = _tiny_inferencer("cpu", pair=pair)
+        with recording():
+            inf.evaluate_path([path], str(tmp_path / str(pair)),
+                              win_size=(24,) * 3)
+        counted.append(profiling.COUNTS["host_syncs"])
+    assert counted[0] == counted[1] > 0
 
 
 @pytest.mark.parametrize("name,depth,chunks", [
@@ -500,3 +534,39 @@ def test_spans_and_counters_do_not_synchronize(dev):
         work()
     assert len(profiling.SPANS) == 4
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_stage_timing_does_not_synchronize(dev, tmp_path):
+    """A served two-stage volume: the same host syncs as a one-model
+    volume, each one counted, none from the stages' device timing (sync
+    debug mode "warn"); a device-timed span raises nothing under "error".
+    The timings resolve after the window."""
+    paths = _heads(tmp_path, 2)
+    one, pair = _tiny_inferencer(dev), _tiny_inferencer(dev, pair=True)
+    syncs = []
+    for inf in (one, pair):
+        inf.evaluate_path(paths[:1], str(tmp_path / "warm"),
+                          win_size=(24,) * 3)
+        with recording(), _SyncWarnings() as w:
+            inf.evaluate_path(paths[1:], str(tmp_path / "one"),
+                              win_size=(24,) * 3)
+        counted = profiling.COUNTS.get("host_syncs", 0)
+        assert counted == w.n, (counted, w.n, w.sites, w.outside)
+        syncs.append(counted)
+    assert syncs[0] == syncs[1] > 0
+    stages = [s for s in profiling.SPANS if s.name.startswith("serve.stage")]
+    assert _names(stages) == ["serve.stage0", "serve.stage1"]
+    assert all(s.device_ms() > 0 for s in stages)
+
+    x = torch.randn(512, 512, device=dev)
+    torch.cuda.synchronize()
+    with recording():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with annotate("timed", device=dev) as span:
+                y = x @ x
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    del y
+    assert span.device_ms() > 0
