@@ -5,13 +5,14 @@
 // jax.custom_vjp GroupNorms (_fgn_stats / _fused_groupnorm :289-388,
 // _pair_groupnorm :184-286); the (B, C) -> (B, G) algebra between the
 // passes stays in PyTorch (brainfm_tpu_torch/ops/groupnorm.py):
-//  - K3 chan_sums:    per (sample, channel) row, sum(u) and sum(u * v) over
+//  - K3 chan_sums:    per (sample, channel), sum(u) and sum(u * v) over
 //                     the spatial extent. Forward u = v = x gives s1 and
 //                     s2; backward u = dy, v = x gives s_dy and s_dyx.
-//  - K4 chan_affine:  y = x * a[row] + b[row], computed in the statistics
-//                     type and stored in x's type (the forward apply).
-//  - K5 chan_affine3: dx = dy * P[row] + x * Q[row] + R[row] with P, Q, R
-//                     in x's type, each operation rounded to x's type, as
+//  - K4 chan_affine:  y = x * a[n, c] + b[n, c], computed in the
+//                     statistics type and stored in x's type (the forward
+//                     apply).
+//  - K5 chan_affine3: dx = dy * P[n, c] + x * Q[n, c] + R[n, c] with P, Q,
+//                     R in x's type, each operation rounded to x's type, as
 //                     _fgn_bwd / _pgn_bwd combine in the activation dtype.
 //
 // Semantics are exactly ops/groupnorm.py's plain versions
@@ -20,24 +21,44 @@
 // (__fmul_rn, __fadd_rn), so they are bitwise equal to them; K3 sums in
 // another order, to within the statistics type's rounding.
 //
-// Layout: (rows, S) with rows = N * C and S the spatial extent, each row
-// contiguous (NCDHW or NCHW, the layout the model runs in); the wrapper
-// refuses any other strides. Types: bf16, fp32 and fp64 inputs, one
-// template each; sums and the affine in fp32 (fp64 for fp64 inputs).
+// Two layouts, one kernel family each, chosen by `channels`:
+//  - NC rows (channels == 0): (rows, S) with rows = N * C and S the
+//    spatial extent, each row contiguous (NCDHW, NCHW).
+//  - channels-last (channels == C): each sample (S, C) with C innermost
+//    (NDHWC, `torch.channels_last_3d`), the layout the 3-D network runs in
+//    on the card. The `cl_` kernels.
+// The wrapper refuses any other strides. Types: bf16, fp32 and fp64
+// inputs, one template each; sums and the affine in fp32 (fp64 for fp64
+// inputs).
 //
 // Bound on the H100: bytes. K3 reads its inputs once and writes 2 numbers
-// a row; K4 reads x and writes y; K5 reads dy and x and writes dx. The
-// coefficients are a few KB.
+// a (sample, channel); K4 reads x and writes y; K5 reads dy and x and
+// writes dx. The coefficients are a few KB.
 //
-// Design. The library's GroupNorm runs one block per (sample, group) row:
-// 8 blocks on 132 SMs at batch 1. Here every row is split over many
-// blocks: K3 as a two-stage reduction (grid (rows, chunks) of partial
+// Design, NC rows. The library's GroupNorm runs one block per (sample,
+// group) row: 8 blocks on 132 SMs at batch 1. Here every row is split over
+// many blocks: K3 as a two-stage reduction (grid (rows, chunks) of partial
 // sums, each block reducing in a fixed tree, then one thread per row
 // adding its chunks in order: no float atomics, so two runs are bitwise
 // equal), K4 and K5 as grids (rows, S / 8192) with each block's
 // coefficients loaded once. Loads and stores are 16 B a thread where a
 // row's length is a multiple of 16 B and the pointers are 16-B aligned,
 // one element a thread otherwise.
+//
+// Design, channels-last. A voxel is C contiguous values, so a 16-B vector
+// holds 8 bf16 channels (4 fp32, 2 fp64) of one voxel. A block's threads
+// form a tile of `rows` voxels by `ct` channel vectors (ct = C / V up to
+// the block's 256 threads, rows = 256 / ct): consecutive threads read
+// consecutive vectors of consecutive voxels, and each thread keeps one
+// channel vector for the whole block, so its coefficients sit in registers,
+// loaded once. Wider voxels (C / V > 256) take passes of 256 vectors. K4
+// and K5 run on grids (voxel chunks, N). K3's stage 1 runs on (chunks, N):
+// each thread accumulates its vector's V channels over the block's voxels,
+// the block reduces its rows in shared memory in a fixed order and writes
+// (C, 2) partials; stage 2 (`cl_sums_finish`) adds each (sample, channel)'s
+// chunks with 32 lanes and a fixed tree, so two runs are bitwise equal.
+// Vectors need C a multiple of V and 16-B aligned pointers; otherwise V is
+// one element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -263,6 +284,221 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- channels-last: each sample (S, C), C innermost ----
+
+// V values of T, loaded and stored as one access
+template <typename T, int V> struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+// a block's threads as `rows` voxels by `ct` channel vectors of V values
+struct Tile {
+  int cv, ct, rows, r, j;
+  __device__ Tile(int C, int V) {
+    cv = C / V;
+    ct = cv < kThreads ? cv : kThreads;
+    rows = kThreads / ct;
+    r = threadIdx.x / ct;
+    j = threadIdx.x % ct;
+  }
+  // this thread's channel vector in the pass starting at vector p0
+  __device__ bool on(int p0) const { return r < rows && p0 + j < cv; }
+};
+
+// one vector of u (and v) into the V sums of u and of u * v
+template <typename T, int V, bool kSquare>
+__device__ __forceinline__ void add_sums(typename Acc<T>::type* a1,
+                                         typename Acc<T>::type* a2,
+                                         const Vec<T, V>& pu,
+                                         const Vec<T, V>& pv) {
+  using A = typename Acc<T>::type;
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const A x = up(pu.v[q]);
+    a1[q] += x;
+    a2[q] += x * (kSquare ? x : up(pv.v[q]));
+  }
+}
+
+// loads a thread of channels-last K3 keeps in flight
+constexpr int kBatch = 4;
+
+// K3 stage 1, channels-last: block (k, n) writes part[n * C + c, k] =
+// (sum u, sum u*v) over channel c of voxels [k * vchunk, (k + 1) * vchunk)
+// of sample n
+template <typename T, int V, bool kSquare>
+__global__ void __launch_bounds__(kThreads)
+    cl_sums_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                   typename Acc<T>::type* __restrict__ part, int64_t S,
+                   int C, int64_t vchunk) {
+  using A = typename Acc<T>::type;
+  __shared__ A red[2 * V][kThreads];
+  const Tile t(C, V);
+  const int64_t n = blockIdx.y;
+  const int chunks = gridDim.x;
+  const int64_t s0 = (int64_t)blockIdx.x * vchunk;
+  const int64_t s1 = s0 + vchunk < S ? s0 + vchunk : S;
+  const T* us = u + n * S * C;
+  const T* vs = kSquare ? us : v + n * S * C;
+  for (int p0 = 0; p0 < t.cv; p0 += t.ct) {
+    A a1[V], a2[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) a1[q] = a2[q] = 0;
+    if (t.on(p0)) {
+      const Vec<T, V>* uv = reinterpret_cast<const Vec<T, V>*>(
+          us + (int64_t)(p0 + t.j) * V);
+      const Vec<T, V>* vv = reinterpret_cast<const Vec<T, V>*>(
+          vs + (int64_t)(p0 + t.j) * V);
+      const int64_t step = C / V;   // vectors a voxel
+      int64_t s = s0 + t.r;
+      for (; s + (kBatch - 1) * t.rows < s1; s += kBatch * t.rows) {
+        Vec<T, V> pu[kBatch], pv[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          pu[b] = uv[(s + b * t.rows) * step];
+          if (!kSquare) pv[b] = vv[(s + b * t.rows) * step];
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b)
+          add_sums<T, V, kSquare>(a1, a2, pu[b], kSquare ? pu[b] : pv[b]);
+      }
+      for (; s < s1; s += t.rows) {
+        const Vec<T, V> pu = uv[s * step];
+        add_sums<T, V, kSquare>(a1, a2, pu, kSquare ? pu : vv[s * step]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      red[q][threadIdx.x] = a1[q];
+      red[V + q][threadIdx.x] = a2[q];
+    }
+    __syncthreads();
+    // value (q, jj) of the pass summed over the tile's rows, in order
+    for (int i = threadIdx.x; i < 2 * V * t.ct; i += kThreads) {
+      const int q = i / t.ct, jj = i % t.ct;
+      if (p0 + jj < t.cv) {
+        A acc = 0;
+        for (int rr = 0; rr < t.rows; ++rr) acc += red[q][rr * t.ct + jj];
+        const int64_t c = (int64_t)(p0 + jj) * V + q % V;
+        part[((n * C + c) * chunks + blockIdx.x) * 2 + q / V] = acc;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// K3 stage 2, channels-last: out[0, n * C + c] = sum_k part[n * C + c, k,
+// 0], out[1, ...] likewise; a block is 32 channels by kLanes lanes, lane l
+// adding chunks l, l + kLanes, ... in order, then the lanes in order
+constexpr int kLanes = 32;
+constexpr int kFinishThreads = 32 * kLanes;
+
+template <typename A>
+__global__ void __launch_bounds__(kFinishThreads)
+    cl_sums_finish(const A* __restrict__ part, A* __restrict__ out,
+                   int64_t rows, int C, int chunks) {
+  __shared__ A red[2][kLanes][32];
+  const int cx = threadIdx.x & 31, lane = threadIdx.x >> 5;
+  const int64_t c = (int64_t)blockIdx.x * 32 + cx;
+  const int64_t row = (int64_t)blockIdx.y * C + c;
+  A s1 = 0, s2 = 0;
+  if (c < C)
+    for (int k = lane; k < chunks; k += kLanes) {
+      s1 += part[(row * chunks + k) * 2];
+      s2 += part[(row * chunks + k) * 2 + 1];
+    }
+  red[0][lane][cx] = s1;
+  red[1][lane][cx] = s2;
+  __syncthreads();
+  if (lane == 0 && c < C) {
+    A t1 = 0, t2 = 0;
+    for (int l = 0; l < kLanes; ++l) {
+      t1 += red[0][l][cx];
+      t2 += red[1][l][cx];
+    }
+    out[row] = t1;
+    out[rows + row] = t2;
+  }
+}
+
+// K4, channels-last: y = x * a[n, c] + b[n, c] in A, stored in T, over
+// voxels [k * vchunk, (k + 1) * vchunk) of sample n for block (k, n)
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    cl_affine_kernel(const T* __restrict__ x,
+                     const typename Acc<T>::type* __restrict__ a,
+                     const typename Acc<T>::type* __restrict__ b,
+                     T* __restrict__ y, int64_t S, int C, int64_t vchunk) {
+  using A = typename Acc<T>::type;
+  const Tile t(C, V);
+  const int64_t n = blockIdx.y;
+  const int64_t s0 = (int64_t)blockIdx.x * vchunk;
+  const int64_t s1 = s0 + vchunk < S ? s0 + vchunk : S;
+  const T* xs = x + n * S * C;
+  T* ys = y + n * S * C;
+  for (int p0 = 0; p0 < t.cv; p0 += t.ct) {
+    if (!t.on(p0)) continue;
+    const int64_t c0 = (int64_t)(p0 + t.j) * V;
+    A ca[V], cb[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      ca[q] = a[n * C + c0 + q];
+      cb[q] = b[n * C + c0 + q];
+    }
+#pragma unroll 4
+    for (int64_t s = s0 + t.r; s < s1; s += t.rows) {
+      const Vec<T, V> px = *reinterpret_cast<const Vec<T, V>*>(
+          xs + s * C + c0);
+      Vec<T, V> py;
+#pragma unroll
+      for (int q = 0; q < V; ++q)
+        down(add_rn(mul_rn(up(px.v[q]), ca[q]), cb[q]), py.v[q]);
+      *reinterpret_cast<Vec<T, V>*>(ys + s * C + c0) = py;
+    }
+  }
+}
+
+// K5, channels-last: dx = ((dy * P[n, c]) + (x * Q[n, c])) + R[n, c], each
+// operation rounded to T
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    cl_affine3_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                      const T* __restrict__ P, const T* __restrict__ Q,
+                      const T* __restrict__ R, T* __restrict__ dx,
+                      int64_t S, int C, int64_t vchunk) {
+  using A = typename Acc<T>::type;
+  const Tile t(C, V);
+  const int64_t n = blockIdx.y;
+  const int64_t s0 = (int64_t)blockIdx.x * vchunk;
+  const int64_t s1 = s0 + vchunk < S ? s0 + vchunk : S;
+  const T* gs = dy + n * S * C;
+  const T* xs = x + n * S * C;
+  T* ds = dx + n * S * C;
+  for (int p0 = 0; p0 < t.cv; p0 += t.ct) {
+    if (!t.on(p0)) continue;
+    const int64_t c0 = (int64_t)(p0 + t.j) * V;
+    A p[V], q3[V], r[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      p[q] = up(P[n * C + c0 + q]);
+      q3[q] = up(Q[n * C + c0 + q]);
+      r[q] = up(R[n * C + c0 + q]);
+    }
+#pragma unroll 4
+    for (int64_t s = s0 + t.r; s < s1; s += t.rows) {
+      const Vec<T, V> pg = *reinterpret_cast<const Vec<T, V>*>(
+          gs + s * C + c0);
+      const Vec<T, V> px = *reinterpret_cast<const Vec<T, V>*>(
+          xs + s * C + c0);
+      Vec<T, V> pd;
+#pragma unroll
+      for (int q = 0; q < V; ++q)
+        pd.v[q] = combine3(pg.v[q], px.v[q], p[q], q3[q], r[q]);
+      *reinterpret_cast<Vec<T, V>*>(ds + s * C + c0) = pd;
+    }
+  }
+}
+
 template <typename T>
 bool vec_ok(int64_t S, std::initializer_list<const void*> ptrs) {
   if (S % Pack<T>::N) return false;
@@ -326,6 +562,91 @@ int launch_affine3(const void* dy, const void* x, const void* P,
   return (int)cudaGetLastError();
 }
 
+// voxels a block of channels-last K4 / K5 covers: a multiple of the
+// tile's rows, at least 4 steps and about kAffineChunk elements
+int64_t cl_vchunk(int C, int V) {
+  const int cv = C / V;
+  const int64_t rows = kThreads / (cv < kThreads ? cv : kThreads);
+  int64_t steps = (kAffineChunk + rows * C - 1) / (rows * C);
+  if (steps < 4) steps = 4;
+  return rows * steps;
+}
+
+template <typename T>
+int launch_cl_sums(const void* u, const void* v, void* part, void* out,
+                   int64_t N, int64_t S, int C, int64_t vchunk, int chunks,
+                   cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  constexpr int V = Pack<T>::N;
+  const T* ut = (const T*)u;
+  const T* vt = v == nullptr ? ut : (const T*)v;
+  A* pt = (A*)part;
+  const dim3 grid((unsigned)chunks, (unsigned)N);
+  const bool vec = C % V == 0 && aligned16(u) && (v == nullptr ||
+                                                   aligned16(v));
+  if (vec && v == nullptr)
+    cl_sums_kernel<T, V, true><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                         vchunk);
+  else if (vec)
+    cl_sums_kernel<T, V, false><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                          vchunk);
+  else if (v == nullptr)
+    cl_sums_kernel<T, 1, true><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                         vchunk);
+  else
+    cl_sums_kernel<T, 1, false><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                          vchunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 fgrid((unsigned)((C + 31) / 32), (unsigned)N);
+  cl_sums_finish<A><<<fgrid, kFinishThreads, 0, s>>>(pt, (A*)out, N * C, C,
+                                                chunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cl_affine(const void* x, const void* a, const void* b, void* y,
+                     int64_t N, int64_t S, int C, cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  constexpr int V = Pack<T>::N;
+  const bool vec = C % V == 0 && aligned16(x) && aligned16(y);
+  const int64_t vchunk = cl_vchunk(C, vec ? V : 1);
+  const dim3 grid((unsigned)((S + vchunk - 1) / vchunk), (unsigned)N);
+  if (vec)
+    cl_affine_kernel<T, V><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const A*)a, (const A*)b, (T*)y, S, C, vchunk);
+  else
+    cl_affine_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const A*)a, (const A*)b, (T*)y, S, C, vchunk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cl_affine3(const void* dy, const void* x, const void* P,
+                      const void* Q, const void* R, void* dx, int64_t N,
+                      int64_t S, int C, cudaStream_t s) {
+  constexpr int V = Pack<T>::N;
+  const bool vec = C % V == 0 && aligned16(dy) && aligned16(x) &&
+                   aligned16(dx);
+  const int64_t vchunk = cl_vchunk(C, vec ? V : 1);
+  const dim3 grid((unsigned)((S + vchunk - 1) / vchunk), (unsigned)N);
+  if (vec)
+    cl_affine3_kernel<T, V><<<grid, kThreads, 0, s>>>(
+        (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
+        (T*)dx, S, C, vchunk);
+  else
+    cl_affine3_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+        (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
+        (T*)dx, S, C, vchunk);
+  return (int)cudaGetLastError();
+}
+
+// a channels-last call's grid: N samples on y, blocks on x
+bool cl_grid_ok(long long rows, int C, long long S, long long xblocks) {
+  return C > 0 && rows % C == 0 && rows / C <= kMaxGridY && xblocks > 0 &&
+         xblocks <= 0x7fffffffLL && S > 0;
+}
+
 // the grid's limits: rows on x (up to 2^31 - 1), chunks on y
 bool grid_ok(long long rows, long long ychunks) {
   return rows > 0 && rows <= 0x7fffffffLL && ychunks > 0 &&
@@ -334,16 +655,37 @@ bool grid_ok(long long rows, long long ychunks) {
 
 }  // namespace
 
-// K3: out (2, rows) = per row (sum u, sum u * v); v == NULL means v = u.
-// part is scratch of rows * chunks * 2 statistics-type values; each block
-// covers `chunk` elements of a row (chunks * chunk >= S).
+// K3: out (2, rows) = per (sample, channel) row (sum u, sum u * v); v ==
+// NULL means v = u. part is scratch of rows * chunks * 2 statistics-type
+// values. NC rows (channels == 0): each block covers `chunk` elements of a
+// row (chunks * chunk >= S). Channels-last (channels == C, rows = N * C):
+// each block covers `chunk` voxels of a sample (chunks * chunk >= S).
 extern "C" int chan_sums(const void* u, const void* v, void* part, void* out,
                          int dtype, long long rows, long long S,
-                         long long chunk, int chunks, void* stream) {
+                         long long chunk, int chunks, int channels,
+                         void* stream) {
   if (rows == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (channels > 0) {
+    if (!cl_grid_ok(rows, channels, S, chunks) || chunk <= 0 ||
+        chunk * chunks < S)
+      return (int)cudaErrorInvalidValue;
+    const long long N = rows / channels;
+    switch (dtype) {
+      case kBF16:
+        return launch_cl_sums<__nv_bfloat16>(u, v, part, out, N, S,
+                                             channels, chunk, chunks, s);
+      case kF32:
+        return launch_cl_sums<float>(u, v, part, out, N, S, channels, chunk,
+                                     chunks, s);
+      case kF64:
+        return launch_cl_sums<double>(u, v, part, out, N, S, channels,
+                                      chunk, chunks, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (!grid_ok(rows, chunks) || chunk <= 0 || chunk * chunks < S)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case kBF16:
       return launch_sums<__nv_bfloat16>(u, v, part, out, rows, S, chunk,
@@ -356,14 +698,29 @@ extern "C" int chan_sums(const void* u, const void* v, void* part, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// K4: y = x * a + b per row (a, b of rows statistics-type values)
+// K4: y = x * a + b per (sample, channel) row (a, b of rows
+// statistics-type values); channels as chan_sums'
 extern "C" int chan_affine(const void* x, const void* a, const void* b,
                            void* y, int dtype, long long rows, long long S,
-                           void* stream) {
+                           int channels, void* stream) {
   if (rows == 0 || S == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (channels > 0) {
+    if (!cl_grid_ok(rows, channels, S, S)) return (int)cudaErrorInvalidValue;
+    const long long N = rows / channels;
+    switch (dtype) {
+      case kBF16:
+        return launch_cl_affine<__nv_bfloat16>(x, a, b, y, N, S, channels,
+                                               s);
+      case kF32:
+        return launch_cl_affine<float>(x, a, b, y, N, S, channels, s);
+      case kF64:
+        return launch_cl_affine<double>(x, a, b, y, N, S, channels, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (!grid_ok(rows, (S + kAffineChunk - 1) / kAffineChunk))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case kBF16: return launch_affine<__nv_bfloat16>(x, a, b, y, rows, S, s);
     case kF32: return launch_affine<float>(x, a, b, y, rows, S, s);
@@ -372,14 +729,32 @@ extern "C" int chan_affine(const void* x, const void* a, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: dx = dy * P + x * Q + R per row (P, Q, R of rows values of x's type)
+// K5: dx = dy * P + x * Q + R per (sample, channel) row (P, Q, R of rows
+// values of x's type); channels as chan_sums'
 extern "C" int chan_affine3(const void* dy, const void* x, const void* P,
                             const void* Q, const void* R, void* dx, int dtype,
-                            long long rows, long long S, void* stream) {
+                            long long rows, long long S, int channels,
+                            void* stream) {
   if (rows == 0 || S == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (channels > 0) {
+    if (!cl_grid_ok(rows, channels, S, S)) return (int)cudaErrorInvalidValue;
+    const long long N = rows / channels;
+    switch (dtype) {
+      case kBF16:
+        return launch_cl_affine3<__nv_bfloat16>(dy, x, P, Q, R, dx, N, S,
+                                                channels, s);
+      case kF32:
+        return launch_cl_affine3<float>(dy, x, P, Q, R, dx, N, S, channels,
+                                        s);
+      case kF64:
+        return launch_cl_affine3<double>(dy, x, P, Q, R, dx, N, S, channels,
+                                         s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (!grid_ok(rows, (S + kAffineChunk - 1) / kAffineChunk))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case kBF16:
       return launch_affine3<__nv_bfloat16>(dy, x, P, Q, R, dx, rows, S, s);

@@ -1,9 +1,14 @@
 """Model assembly: task wiring, joiners, output processors, the two-stage
 pair and the frozen pathology critic (port of brainfm_tpu/models/build.py).
 
-The model modules run in NCDHW, the layout cuDNN expects; the joiners
-take and return the JAX package's channels-last layout (N,D,H,W,C) and
-permute once at their boundary. Mixed precision is the caller's
+The model modules take (N, C, D, H, W) tensors; the joiners take and
+return the JAX package's channels-last layout (N,D,H,W,C) and permute
+once at their boundary, a view. On the card, outside a space scope, that
+view is NDHWC in memory (`torch.channels_last_3d`) and the 3-D network
+runs in it from the input to the heads (models/unet3d.py), so the
+returned feature levels are contiguous (N,D,H,W,C) and each head output
+a channels-innermost view; on the CPU and on a scope's slabs the input is
+copied to NCDHW, as before. Mixed precision is the caller's
 `torch.autocast`, not a compute dtype.
 
 The two stages of two-stage inpainting are one `TwoStage` module with the
@@ -24,6 +29,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.lut import lut_apply
+from ..parallel.spatial import current_space
 from ..synth.constants import LABELS_EXTRACEREBRAL, LABELS_LEFT
 from ..utils.profiling import OFF, annotate, count
 from .heads import TaskHead
@@ -105,16 +111,20 @@ def _to_ncdhw(x):
 
 
 def _model_input(x):
-    """The backbone's NCDHW input. A one-channel input keeps the
-    channels-last strides its permute gives, and the network runs in that
-    layout on the card, as measured since the first slice. On the CPU it
+    """The backbone's (N, C, D, H, W) input. On the card, outside a space
+    scope, a 3-D input keeps the NDHWC strides of the permute (densified
+    if x is a view; the two-stage pair's two-channel stage-1 input is not
+    copied), and the network runs channels-last from here. On the CPU it
     gets plain NCDHW strides: PyTorch's CPU GroupNorm backward faults on a
     channels-last input that needs no gradient (the first GroupNorm in
-    training)."""
+    training). A scope's slabs and the 2-D UNet stay NCDHW: `space_conv`
+    joins halos along D of NCDHW slabs."""
     x = _to_ncdhw(x)
     if x.device.type == "cpu":
         return x.clone(memory_format=torch.contiguous_format)
-    return x.contiguous()
+    if x.dim() == 5 and current_space() is None:
+        return x.contiguous(memory_format=torch.channels_last_3d)
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _to_ndhwc(x):

@@ -1,4 +1,8 @@
-"""Task heads (port of brainfm_tpu/models/heads.py), NCDHW (NCHW in 2-D).
+"""Task heads (port of brainfm_tpu/models/heads.py), on (N, C, D, H, W)
+tensors ((N, C, H, W) in 2-D) in the backbone's memory format (NDHWC on
+the card, models/unet3d.py): the convolutions take their weights by
+`unet3d.conv_weight`, and the fused 1x1 conv's outputs are split along
+channels, so each head's output keeps the layout.
 
 `TaskHead` = optional 3x3 ConvBlock stack + one 1x1 conv per named output,
 the 1x1 convs computed as ONE conv over their concatenated weights
@@ -24,6 +28,7 @@ from torch import nn
 
 from ..parallel.spatial import (current_space, gather_space, space_conv,
                                 whole)
+from .unet3d import channels_last, conv, conv_weight, memory_format_of
 
 
 class ConvBlock(nn.Module):
@@ -36,21 +41,55 @@ class ConvBlock(nn.Module):
 
     def forward(self, x):
         sc = current_space()
-        y = self.main(x) if sc is None else space_conv(self.main, x, sc)
+        y = conv(self.main, x) if sc is None else space_conv(self.main, x,
+                                                              sc)
         return F.leaky_relu(y, 0.2)
+
+
+class _SplitChannels(torch.autograd.Function):
+    """y.split(sizes, dim=1), whose backward writes the parts' gradients
+    into one tensor in y's memory format, zeros where a part has none
+    (torch's split concatenates them, and a part without a gradient joins
+    as NCDHW zeros, which turns the whole gradient NCDHW)."""
+
+    @staticmethod
+    def forward(ctx, y, sizes):
+        ctx.sizes, ctx.shape = sizes, y.shape
+        ctx.dtype, ctx.fmt = y.dtype, memory_format_of(y)
+        ctx.set_materialize_grads(False)
+        return y.split(sizes, dim=1)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = torch.empty(ctx.shape, dtype=ctx.dtype, device=next(
+            t for t in grads if t is not None).device,
+            memory_format=ctx.fmt)
+        off = 0
+        for gi, n in zip(grads, ctx.sizes):
+            part = g.narrow(1, off, n)
+            if gi is None:
+                part.zero_()
+            else:
+                part.copy_(gi)
+            off += n
+        return g, None
 
 
 def _fused_final_convs(x, convs: Dict[str, nn.Module]):
     if not convs:
         return {}
-    w = torch.cat([c.weight for c in convs.values()], dim=0)
-    b = torch.cat([c.bias for c in convs.values()], dim=0)
-    y = (F.conv3d if w.dim() == 5 else F.conv2d)(x, w, b)
-    out, off = {}, 0
-    for name, c in convs.items():
-        out[name] = y[:, off:off + c.out_channels]
-        off += c.out_channels
-    return out
+    ws = [c.weight for c in convs.values()]
+    bs = [c.bias for c in convs.values()]
+    sizes = [c.out_channels for c in convs.values()]
+    # NDHWC: zero outputs up to a multiple of 8 (cuDNN's NDHWC backward
+    # converts the layout of any other width, the flagship's 68 included)
+    pad = -sum(sizes) % 8 if channels_last(x) else 0
+    if pad:
+        ws.append(ws[0].new_zeros((pad,) + tuple(ws[0].shape[1:])))
+        bs.append(bs[0].new_zeros(pad))
+    w = conv_weight(torch.cat(ws, dim=0), x)
+    y = (F.conv3d if w.dim() == 5 else F.conv2d)(x, w, torch.cat(bs))
+    return dict(zip(convs, _SplitChannels.apply(y, sizes + [pad])))
 
 
 def scalar_head_width(size, is_3d=True) -> int:

@@ -1,4 +1,5 @@
-"""3-D UNet backbone (port of brainfm_tpu/models/unet3d.py), NCDHW.
+"""3-D UNet backbone (port of brainfm_tpu/models/unet3d.py), on (N, C, D,
+H, W) tensors.
 
 Geometric f_maps progression, `layer_order`-driven blocks (default 'gcl' =
 GroupNorm -> Conv -> LeakyReLU(0.01), bias-free convs when normalized),
@@ -24,6 +25,18 @@ reshape and expand for the ratios 2s and 2s - 1 (a block-sum backward)
 and gathers for any other. `_remat_block` is each DoubleConv's `remat`
 mode (`remat_mode`), honoured when gradients are recorded; `save_convs`
 keeps one convolution output per SingleConv, the pair's included.
+
+Memory format. The network runs in its input's: NDHWC
+(`torch.channels_last_3d`, `channels_last`) where the joiners hand it a
+channels-last input (models/build.py: on the card, outside a space
+scope), NCDHW otherwise (the CPU, a scope's slabs, the 2-D UNet). cuDNN's
+3-D bf16 convolutions compute in NDHWC, so in NDHWC nothing is converted
+around them: each convolution's weight is made NDHWC in the one cast to
+autocast's dtype it takes anyway (`conv_weight`; the parameters keep
+their layout), GroupNorm's kernels take NDHWC operands, the pair conv's
+depth-to-space add and its backward and the nearest upsample (on the
+(N, D, H, W, C) view) keep it, and so do max-pool, the concat and every
+pointwise layer. The saved convolution outputs of `save_convs` are NDHWC.
 
 Inside `parallel.spatial.space_scope` (the port's counterpart of the JAX
 package's GSPMD spatial sharding) the 3-D network runs on D slabs: each
@@ -53,6 +66,7 @@ from ..ops.groupnorm import (fused_group_norm, num_groups_of,
                              pair_group_norm)
 from ..parallel.spatial import (current_space, gather_space, level_layout,
                                 slice_space, space_conv, use_scope, whole)
+from ..utils.profiling import count
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -88,6 +102,47 @@ def _compute_dtype(t):
     return t.dtype
 
 
+def channels_last(x) -> bool:
+    """Whether the 5-D activation x is NDHWC (`channels_last_3d`): dense
+    with channels innermost. One channel or one voxel is both layouts;
+    the channel stride decides (1: the joiners' permuted one-channel
+    input, a level pooled to one voxel in NDHWC)."""
+    return (x.dim() == 5 and x.stride(1) == 1
+            and x.is_contiguous(memory_format=torch.channels_last_3d))
+
+
+def memory_format_of(x):
+    return torch.channels_last_3d if channels_last(x) \
+        else torch.contiguous_format
+
+
+def as_format(t, fmt):
+    """t dense in `fmt`: itself, or a copy (counted as `layout.copies`)."""
+    if t.is_contiguous(memory_format=fmt):
+        return t
+    count("layout.copies")
+    return t.contiguous(memory_format=fmt)
+
+
+def conv_weight(w, x):
+    """A convolution's weight as it meets x: as it is, or where x is NDHWC,
+    NDHWC in the one cast to autocast's dtype that autocast would make
+    (an fp32 weight under autocast), so that cuDNN converts nothing."""
+    if not channels_last(x):
+        return w
+    dt = _compute_dtype(x) if w.dtype == torch.float32 else w.dtype
+    # a copy with NDHWC's own strides, also for a one-channel or 1^3 kernel
+    return w.to(dt, memory_format=torch.channels_last_3d, copy=True)
+
+
+def conv(module, x):
+    """module(x) for a convolution module, its weight by `conv_weight`."""
+    if not channels_last(x):
+        return module(x)
+    return module._conv_forward(x, conv_weight(module.weight, x),
+                                module.bias)
+
+
 @torch.library.custom_op("brainfm::phase_pair_conv", mutates_args=())
 def _pair_conv(enc: Tensor, z: Tensor, wa: Tensor, kph: Tensor) -> Tensor:
     """conv3x3(enc, wa) + depth_to_space(conv3x3(z, kph)): the two cuDNN
@@ -105,7 +160,9 @@ def _pair_conv(enc: Tensor, z: Tensor, wa: Tensor, kph: Tensor) -> Tensor:
 
 @_pair_conv.register_fake
 def _(enc, z, wa, kph):
-    return enc.new_empty((enc.shape[0], wa.shape[0]) + tuple(enc.shape[2:]))
+    return torch.empty((enc.shape[0], wa.shape[0]) + tuple(enc.shape[2:]),
+                       dtype=enc.dtype, device=enc.device,
+                       memory_format=memory_format_of(enc))
 
 
 def _pair_conv_setup(ctx, inputs, output):
@@ -119,13 +176,17 @@ _CONV3 = dict(stride=[1] * 3, padding=[1] * 3, dilation=[1] * 3,
 def _pair_conv_backward(ctx, g):
     enc, z, wa, kph = ctx.saved_tensors
     need = ctx.needs_input_grad
-    g = g.contiguous()
+    fmt = memory_format_of(enc)
+    g = as_format(g, fmt)
     d_enc, d_wa, _ = torch.ops.aten.convolution_backward(
         g, enc, wa, None, **_CONV3, output_mask=[need[0], need[2], False])
     n, co = g.shape[:2]
     d, h, w = z.shape[2:]
-    gb = g.view(n, co, d, 2, h, 2, w, 2).permute(0, 3, 5, 7, 1, 2, 4, 6)
-    gb = gb.reshape(n, 8 * co, d, h, w)
+    # gb[n, (p, q, r, o), i, j, k] = g[n, o, 2i+p, 2j+q, 2k+r], in g's layout
+    gb = torch.empty((n, 8 * co, d, h, w), dtype=g.dtype, device=g.device,
+                     memory_format=fmt)
+    gb.view(n, 2, 2, 2, co, d, h, w).copy_(
+        g.view(n, co, d, 2, h, 2, w, 2).permute(0, 3, 5, 7, 1, 2, 4, 6))
     d_z, d_kph, _ = torch.ops.aten.convolution_backward(
         gb, z, kph, None, **_CONV3, output_mask=[need[1], need[3], False])
     return d_enc, d_z, d_wa, d_kph
@@ -152,8 +213,11 @@ def phase_pair_conv(enc, z, weight):
     convolutions are cuDNN's; the dtype is autocast's where it is on."""
     ce = enc.shape[1]
     dt = _compute_dtype(enc)
-    kph = fold_phase_kernel(weight[:, ce:]).to(dt)
-    return _pair_conv(enc.to(dt), z.to(dt), weight[:, :ce].to(dt), kph)
+    fmt = torch.channels_last_3d if channels_last(enc) \
+        else torch.preserve_format
+    kph = fold_phase_kernel(weight[:, ce:]).to(dt, memory_format=fmt)
+    return _pair_conv(enc.to(dt), z.to(dt),
+                      weight[:, :ce].to(dt, memory_format=fmt), kph)
 
 
 def _pointwise(fn, x):
@@ -210,7 +274,7 @@ class SingleConv(nn.Module):
                         x = x + self.conv.bias.to(x.dtype).reshape(
                             1, -1, 1, 1, 1)
                 elif sc is None:
-                    x = self.conv(x)
+                    x = conv(self.conv, x)
                 else:
                     x = space_conv(self.conv, x, sc)
             elif c == "l":
@@ -296,14 +360,26 @@ class Encoder(nn.Module):
         return self.basic_module(x)
 
 
-def _nearest_upsample_to(x, target_spatial):
+def _nearest_upsample_to(x, target_spatial, last=None):
     """F.interpolate(mode='nearest') semantics, index floor(i * in / out).
     An axis whose target is 2 * src or 2 * src - 1 repeats each voxel twice
     (then crops), all such axes in one reshape and expand, whose backward
-    is a block sum; any other ratio gathers, in exact integer arithmetic."""
+    is a block sum; any other ratio gathers, in exact integer arithmetic.
+    With `last` (by default: where x is NDHWC) x is upsampled as its (N,
+    D, H, W, C) view and the result is NDHWC."""
+    if channels_last(x) if last is None else last:
+        return _upsample_axes(x.movedim(1, -1), target_spatial,
+                              1).movedim(-1, 1)
+    return _upsample_axes(x, target_spatial, 2)
+
+
+def _upsample_axes(x, target_spatial, first):
+    """`_nearest_upsample_to` on the spatial axes first, first + 1, ..."""
+    lead, tail = list(x.shape[:first]), list(x.shape[first + len(
+        target_spatial):])
     rep = []
     for axis, tgt in enumerate(target_spatial):
-        src = x.shape[axis + 2]
+        src = x.shape[first + axis]
         if src == tgt:
             rep.append(False)
         elif tgt in (2 * src, 2 * src - 1):
@@ -311,18 +387,20 @@ def _nearest_upsample_to(x, target_spatial):
         else:
             rep.append(False)
             idx = torch.arange(tgt, device=x.device) * src // tgt
-            x = x.index_select(axis + 2, idx)
+            x = x.index_select(first + axis, idx)
     if any(rep):
-        view, expand = list(x.shape[:2]), list(x.shape[:2])
-        for n, r in zip(x.shape[2:], rep):
+        spatial = x.shape[first:first + len(rep)]
+        view, expand = list(lead), list(lead)
+        for n, r in zip(spatial, rep):
             view += [n, 1] if r else [n]
             expand += [n, 2] if r else [n]
-        x = x.reshape(view).expand(expand).reshape(
-            *x.shape[:2], *(2 * n if r else n
-                            for n, r in zip(x.shape[2:], rep)))
+        # dense, also where the coarse extent is one voxel (no view)
+        x = x.reshape(view + tail).expand(expand + tail).contiguous().view(
+            *lead, *(2 * n if r else n for n, r in zip(spatial, rep)),
+            *tail)
         for axis, tgt in enumerate(target_spatial):
-            if x.shape[axis + 2] != tgt:
-                x = x.narrow(axis + 2, 0, tgt)
+            if x.shape[first + axis] != tgt:
+                x = x.narrow(first + axis, 0, tgt)
     return x
 
 
@@ -349,7 +427,8 @@ class Decoder(nn.Module):
                 and all(t == 2 * s and s > 0
                         for s, t in zip(x.shape[2:], enc.shape[2:]))):
             return self.basic_module((enc, x))
-        x = _nearest_upsample_to(x, enc.shape[2:])
+        # in the skip's layout: a coarse level of one voxel is both
+        x = _nearest_upsample_to(x, enc.shape[2:], channels_last(enc))
         return self.basic_module(torch.cat([enc, x], dim=1))
 
 
@@ -436,7 +515,8 @@ class UNet3D(nn.Module):
         return self.get_feature(x)[-1]
 
     def get_feature(self, x):
-        """[bottleneck, decoder level 1, ..., final], NCDHW."""
+        """[bottleneck, decoder level 1, ..., final], (N, C, D, H, W) in
+        x's memory format."""
         return _decode(self.decoders, _encode(self.encoders, x),
                        self.is_unit_vector)
 

@@ -40,7 +40,11 @@ The spans and counters (see PERF.md for the metrics that read them):
       adaptive solver's steps (rejected ones included), rejected steps,
       right-hand-side evaluations and requested intervals (ops/ode.py);
       write.chunks: the chunks of a .nii.gz deflated on the writer's
-      thread pool (utils/nifti.py; a one-chunk file adds nothing).
+      thread pool (utils/nifti.py; a one-chunk file adds nothing);
+      layout.copies: each copy the port makes of an activation or a
+      gradient to change its memory format (NCDHW against NDHWC: the
+      GroupNorm kernels' mixed operands, ops/groupnorm.py; the network's
+      boundaries, models/), 0 where the network keeps one layout.
 """
 
 from __future__ import annotations

@@ -823,6 +823,13 @@ GN_TRAIN_CASES = _gn_names(("pair enc", "pair z"),
                             ("chan_affine", ""), ("chan_affine3", "")))
 GN_SERVE_CASES = _gn_names(("serve",), (("chan_sums", ""),
                                         ("chan_affine", "")))
+# the same tensors channels-last (NDHWC, the layout the network runs in on
+# the card): the NDHWC kernels
+GN_NDHWC_CASES = (_gn_names(("pair enc ndhwc", "pair z ndhwc"),
+                            (("chan_sums", ""), ("chan_sums", " backward"),
+                             ("chan_affine", ""), ("chan_affine3", "")))
+                  + _gn_names(("serve ndhwc",), (("chan_sums", ""),
+                                                  ("chan_affine", ""))))
 # one rank's D slab of the served tensor over MGPU_WORLD ranks (the
 # multigpu_reference's sharded serving), bf16 as served
 GN_SLAB_CASES = ("chan_sums bf16 serve slab", "chan_affine bf16 serve slab")
@@ -834,10 +841,11 @@ def gn_cases(scfg, dev) -> list:
     cfg.size, z twice the channels at half the extent: K3 forward and
     backward, K4, K5) and the served SERVE_WIN x GN_F_MAPS tensor (K3, K4;
     serving has no backward), and in bf16 one rank's D slab of it over
-    MGPU_WORLD ranks (the space-sharded served volume). The library call
-    is the GroupNorm pass each takes part in, on the same tensor (8
-    groups): `F.group_norm` forward for K3 and K4, its backward through
-    `torch.autograd.grad` for K3 on (dy, x) and K5."""
+    MGPU_WORLD ranks (the space-sharded served volume); the pair's and
+    the served tensors again channels-last (`ndhwc`, the NDHWC kernels).
+    The library call is the GroupNorm pass each takes part in, on the same
+    tensor (8 groups): `F.group_norm` forward for K3 and K4, its backward
+    through `torch.autograd.grad` for K3 on (dy, x) and K5."""
     g = torch.Generator(dev).manual_seed(2)
     S, size = scfg.all_samples, tuple(scfg.size)
     shapes = {"pair enc": (S, GN_F_MAPS, *size),
@@ -845,6 +853,8 @@ def gn_cases(scfg, dev) -> list:
               "serve": (1, GN_F_MAPS, *SERVE_WIN),
               "serve slab": (1, GN_F_MAPS, SERVE_WIN[0] // MGPU_WORLD,
                              *SERVE_WIN[1:])}
+    shapes |= {f"{k} ndhwc": shapes[k] for k in ("pair enc", "pair z",
+                                                  "serve")}
     cases = []
     for dname, dtype in GN_DTYPES:
         sdt = groupnorm.stats_dtype(dtype)
@@ -852,7 +862,10 @@ def gn_cases(scfg, dev) -> list:
             if part == "serve slab" and dname != "bf16":
                 continue
             N, C = shape[:2]
-            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+            fmt = (torch.channels_last_3d if part.endswith("ndhwc")
+                   else torch.contiguous_format)
+            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(
+                dtype, memory_format=fmt)
             w = torch.linspace(0.5, 1.5, C, device=dev, dtype=dtype)
             b = torch.linspace(-0.2, 0.2, C, device=dev, dtype=dtype)
             a2 = [torch.rand((N, C), generator=g, device=dev).to(sdt) + 0.5
@@ -872,7 +885,8 @@ def gn_cases(scfg, dev) -> list:
                 nx + 2 * nc * ss, exact=False, rtol=GN_SUMS_RTOL,
                 reps=GN_REPS, info=fwd))
             if not part.startswith("serve"):
-                dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+                dy = torch.randn(shape, generator=g, device=dev).to(
+                    dtype, memory_format=fmt)
                 PQR = [(torch.randn((N, C), generator=g, device=dev) * 0.1)
                        .to(dtype) for _ in range(3)]
                 held = {}
@@ -911,7 +925,7 @@ def gn_cases(scfg, dev) -> list:
                     lib_bwd, 3 * nx + 3 * nc * es, exact=True, reps=GN_REPS,
                     info=bwd))
     order = {n: i for i, n in enumerate(GN_TRAIN_CASES + GN_SERVE_CASES
-                                         + GN_SLAB_CASES)}
+                                         + GN_SLAB_CASES + GN_NDHWC_CASES)}
     return sorted(cases, key=lambda c: order[c.name])
 
 
@@ -946,7 +960,7 @@ ENTRY_CASES = ("warp_linear_f32 C=10 dry run", "warp_nearest_i32 dry run",
 PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
               "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES,
               "entry_case": ENTRY_CASES, "gn_serve_case": GN_SERVE_CASES,
-              "gn_slab_case": GN_SLAB_CASES}
+              "gn_slab_case": GN_SLAB_CASES, "gn_ndhwc_case": GN_NDHWC_CASES}
 
 
 def check_kernels(scfg, dev):

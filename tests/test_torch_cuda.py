@@ -284,15 +284,27 @@ def test_wrappers_reject_bad_inputs(dev):
 SUMS_RTOL = {torch.bfloat16: 1e-5, torch.float32: 1e-5, torch.float64: 1e-13}
 GN_DTYPES = [torch.bfloat16, torch.float32, torch.float64]
 # (N, C, spatial): 16-B rows (vector path), odd rows (scalar path), rows
-# split over many blocks, one channel, the 2-D UNet's NCHW
+# split over many blocks, one channel, the 2-D UNet's NCHW; for the
+# channels-last kernels also two channels (one element a thread), 192 (a
+# tile of 24 vectors that does not divide the block) and 3072 (passes of
+# 256 vectors)
 GN_SHAPES = [(2, 16, (8, 8, 8)), (1, 5, (7, 9, 11)), (4, 3, (96, 80, 72)),
-             (1, 1, (33, 32, 31)), (2, 24, (20, 24))]
+             (1, 1, (33, 32, 31)), (2, 24, (20, 24)), (1, 2, (30, 31, 29)),
+             (2, 192, (9, 10, 11)), (1, 3072, (3, 4, 5))]
+# the kernels' two layouts: (sample, channel) rows and channels-last
+GN_LAYOUTS = ["rows", "last"]
 
 
-def _gn_input(shape, dtype, dev, seed, shift=0.5):
+def _gn_input(shape, dtype, dev, seed, shift=0.5, layout="rows"):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return (torch.randn(shape, generator=g, dtype=torch.float64)
-            + shift).to(dtype).to(dev)
+    t = (torch.randn(shape, generator=g, dtype=torch.float64)
+         + shift).to(dtype).to(dev)
+    return t if layout == "rows" else _last(t)
+
+
+def _last(t):
+    """t's values with channels innermost (N, ..., C) in memory."""
+    return t.movedim(1, -1).contiguous().movedim(-1, 1)
 
 
 def _assert_sums(got, u, v):
@@ -307,11 +319,13 @@ def _assert_sums(got, u, v):
                 .all()), float(err.max())
 
 
+@pytest.mark.parametrize("layout", GN_LAYOUTS)
 @pytest.mark.parametrize("dtype", GN_DTYPES)
 @pytest.mark.parametrize("N,C,spatial", GN_SHAPES)
-def test_chan_sums_matches_plain(dev, N, C, spatial, dtype):
-    u = _gn_input((N, C, *spatial), dtype, dev, 1)
-    v = _gn_input((N, C, *spatial), dtype, dev, 2, shift=-0.2)
+def test_chan_sums_matches_plain(dev, N, C, spatial, dtype, layout):
+    u = _gn_input((N, C, *spatial), dtype, dev, 1, layout=layout)
+    v = _gn_input((N, C, *spatial), dtype, dev, 2, shift=-0.2,
+                  layout=layout)
     for vv in (None, v):
         before = kernels.LAUNCHES["chan_sums"]
         got = groupnorm.chan_sums(u, vv)
@@ -321,55 +335,100 @@ def test_chan_sums_matches_plain(dev, N, C, spatial, dtype):
         assert torch.equal(got, groupnorm.chan_sums(u, vv))
 
 
+@pytest.mark.parametrize("layout", GN_LAYOUTS)
 @pytest.mark.parametrize("dtype", GN_DTYPES)
 @pytest.mark.parametrize("N,C,spatial", GN_SHAPES)
-def test_chan_affines_match_plain_exactly(dev, N, C, spatial, dtype):
-    x = _gn_input((N, C, *spatial), dtype, dev, 3)
-    dy = _gn_input((N, C, *spatial), dtype, dev, 4, shift=0.0)
+def test_chan_affines_match_plain_exactly(dev, N, C, spatial, dtype, layout):
+    x = _gn_input((N, C, *spatial), dtype, dev, 3, layout=layout)
+    dy = _gn_input((N, C, *spatial), dtype, dev, 4, shift=0.0,
+                   layout=layout)
     sdt = groupnorm.stats_dtype(dtype)
     a = _gn_input((N, C), sdt, dev, 5)
     b = _gn_input((N, C), sdt, dev, 6)
     y = groupnorm.chan_affine(x, a, b)
-    assert y.dtype == dtype and y.is_contiguous()
+    # the output keeps x's strides
+    assert y.dtype == dtype and y.stride() == x.stride()
     assert torch.equal(y, groupnorm.chan_affine_plain(x, a, b))
     P, Q, R = (_gn_input((N, C), dtype, dev, 7 + i) * 0.1 for i in range(3))
     dx = groupnorm.chan_affine3(dy, x, P, Q, R)
+    assert dx.stride() == x.stride()
     assert torch.equal(dx, groupnorm.chan_affine3_plain(dy, x, P, Q, R))
 
 
+def _offset_last(t, offset=1):
+    """A channels-last copy of `t` whose data_ptr sits `offset` elements
+    past a 16-B boundary."""
+    return _offset_view(t.movedim(1, -1).contiguous()).movedim(-1, 1)
+
+
+@pytest.mark.parametrize("layout", GN_LAYOUTS)
 @pytest.mark.parametrize("fn", ["sums", "affine", "affine3"])
-def test_chan_kernels_on_misaligned_views(dev, fn):
-    """Rows of 8 bf16 elements (16 B) starting one element past a 16-B
-    boundary take the one-element path."""
-    shape = (2, 4, 8, 4, 4)
-    x = _offset_view(_gn_input(shape, torch.bfloat16, dev, 8))
-    dy = _offset_view(_gn_input(shape, torch.bfloat16, dev, 9))
+def test_chan_kernels_on_misaligned_views(dev, fn, layout):
+    """Rows (channels-last: voxels) of 8 bf16 elements (16 B) starting one
+    element past a 16-B boundary take the one-element path."""
+    shape = (2, 4, 8, 4, 4) if layout == "rows" else (2, 8, 4, 4, 4)
+    off = _offset_view if layout == "rows" else _offset_last
+    x = off(_gn_input(shape, torch.bfloat16, dev, 8))
+    dy = off(_gn_input(shape, torch.bfloat16, dev, 9))
+    C = shape[1]
+    assert groupnorm.layout_of(x) == {"rows": groupnorm.ROWS,
+                                      "last": groupnorm.LAST}[layout]
     if fn == "sums":
         _assert_sums(groupnorm.chan_sums(dy, x), dy, x)
     elif fn == "affine":
-        a, b = (_gn_input((2, 4), torch.float32, dev, s) for s in (1, 2))
+        a, b = (_gn_input((2, C), torch.float32, dev, s) for s in (1, 2))
         assert torch.equal(groupnorm.chan_affine(x, a, b),
                            groupnorm.chan_affine_plain(x, a, b))
     else:
-        P, Q, R = (_gn_input((2, 4), torch.bfloat16, dev, s)
+        P, Q, R = (_gn_input((2, C), torch.bfloat16, dev, s)
                    for s in (1, 2, 3))
         assert torch.equal(groupnorm.chan_affine3(dy, x, P, Q, R),
                            groupnorm.chan_affine3_plain(dy, x, P, Q, R))
 
 
 def test_chan_kernels_refuse_other_strides(dev):
-    x = torch.zeros(2, 8, 4, 4, 4, device=dev)
-    a = torch.zeros(2, 8, device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        groupnorm.chan_sums(x.to(memory_format=torch.channels_last_3d))
+    """The two dense layouts are taken (channels-last since the NDHWC
+    kernels); a sliced view, half precision, coefficients of another dtype
+    and operands on two devices are refused."""
+    x = _gn_input((2, 8, 4, 4, 4), torch.float32, dev, 1)
+    a = torch.ones(2, 8, device=dev)
+    cl = x.to(memory_format=torch.channels_last_3d)
+    _assert_sums(groupnorm.chan_sums(cl), cl, None)
+    assert torch.equal(groupnorm.chan_affine(cl, a, a),
+                       groupnorm.chan_affine_plain(x, a, a))
     with pytest.raises(ValueError, match="contiguous"):
         groupnorm.chan_affine(x[:, :, ::2], a, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm.chan_sums(cl[:, :, 1:])
     with pytest.raises(TypeError):
         groupnorm.chan_sums(x.half())
     with pytest.raises(ValueError):
         groupnorm.chan_affine(x, a.double(), a.double())
     with pytest.raises(ValueError):
+        groupnorm.chan_affine(cl, a.double(), a.double())
+    with pytest.raises(ValueError):
         groupnorm.chan_sums(x, x.cpu())
+
+
+@pytest.mark.parametrize("fn", ["sums", "affine3"])
+def test_chan_kernels_copy_mixed_operands_once(dev, fn):
+    """dy in the other layout than x: dy is copied into x's, the result is
+    the plain version's, and the copy is counted as `layout.copies`."""
+    from brainfm_tpu_torch.utils import profiling
+
+    x = _last(_gn_input((2, 16, 6, 5, 4), torch.bfloat16, dev, 1))
+    dy = _gn_input((2, 16, 6, 5, 4), torch.bfloat16, dev, 2)
+    P, Q, R = (_gn_input((2, 16), torch.bfloat16, dev, s)
+               for s in (3, 4, 5))
+    with profiling.recording():
+        if fn == "sums":
+            _assert_sums(groupnorm.chan_sums(dy, x), dy, x)
+        else:
+            dx = groupnorm.chan_affine3(dy, x, P, Q, R)
+            assert dx.stride() == x.stride()
+            assert torch.equal(dx, groupnorm.chan_affine3_plain(dy, x, P, Q,
+                                                                R))
+    assert profiling.COUNTS.get("layout.copies") == 1
 
 
 def _rel(a, b):
@@ -441,3 +500,125 @@ def test_phase_pair_conv_and_unet_on_the_card_match_the_cpu(dev):
         assert _rel(a.grad, b.grad) <= 1e-9, k
     for fn in ("chan_sums", "chan_affine", "chan_affine3"):
         assert kernels.LAUNCHES[fn] > 0, fn
+
+
+# The 3-D network in NDHWC on the card (models/build.py::_model_input)
+# against the same network in NCDHW there, a flagship-config step at a
+# small crop, in fp32 (TF32 off) and under bf16 autocast. The losses agree
+# within BF16_LOSS_REL and the fp32 gradients within BF16_GRAD_REL (global
+# relative L2), the bf16 limits of tests/test_torch_groupnorm.py
+# (tests/test_phase_upconv.py's TOLERANCE NOTE). This step's gradients are
+# ill-conditioned at a 32^3 crop (GroupNorm over a few deep voxels, unit
+# features): the CPU's own fp32 gradients lie about 1.4e-2 from its fp64
+# ones, and the bf16 step's about 0.8 from the fp32 step's. So the bf16
+# gradients are held to that: the layout moves them less than bf16 moves
+# them from fp32.
+BF16_LOSS_REL = 1e-3
+BF16_GRAD_REL = 2e-2
+FLAGSHIP_CROP = (32, 32, 32)
+
+
+def _flagship_small(dev, crop=FLAGSHIP_CROP[0]):
+    from brainfm_tpu_torch.models.build import build_model
+    from brainfm_tpu_torch.models.criterion import make_criterion
+
+    cs = _chip_smoke()
+    cfg = cs.flagship_cfg()
+    cfg.generator.size = [crop] * 3
+    torch.manual_seed(0)
+    cfg, model = build_model(cfg, device=dev)
+    _, weight_dict, loss_fn = make_criterion(cfg)
+    batch = cs._to_dev(cs.ref_train_batch(cfg, B=1, S=2), dev)
+    return cfg, model, weight_dict, loss_fn, batch
+
+
+def _step_loss_grads(cfg, model, weight_dict, loss_fn, batch, amp=True):
+    from brainfm_tpu_torch.models.criterion import weighted_total
+    from brainfm_tpu_torch.train.step import batch_losses
+
+    model.zero_grad(set_to_none=True)
+    losses = batch_losses(model, cfg, loss_fn, batch, amp=amp)
+    total = weighted_total(losses, weight_dict)
+    total.backward()
+    grads = torch.cat([p.grad.detach().double().reshape(-1)
+                       for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    return float(total.detach()), grads
+
+
+def test_flagship_step_channels_last_matches_ncdhw(dev, monkeypatch):
+    from brainfm_tpu_torch.models import build
+
+    args = _flagship_small(dev)
+    res = {}
+    for layout in ("ndhwc", "ncdhw"):
+        if layout == "ncdhw":
+            monkeypatch.setattr(build, "_model_input", lambda x: x.movedim(
+                -1, 1).clone(memory_format=torch.contiguous_format))
+        for amp in (False, True):
+            res[layout, amp] = _step_loss_grads(*args, amp=amp)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    for amp in (False, True):
+        (cl_loss, _), (nc_loss, _) = res["ndhwc", amp], res["ncdhw", amp]
+        assert abs(cl_loss - nc_loss) <= BF16_LOSS_REL * abs(nc_loss), amp
+    fp32 = rel(res["ndhwc", False][1], res["ncdhw", False][1])
+    assert fp32 <= BF16_GRAD_REL, fp32
+    bf16 = rel(res["ndhwc", True][1], res["ncdhw", True][1])
+    rounding = rel(res["ncdhw", True][1], res["ncdhw", False][1])
+    assert bf16 <= rounding, (bf16, rounding)
+
+
+def _layout_kernels(fn, dev):
+    """The ops that launch a layout conversion kernel (cuDNN's nchwToNhwc
+    or nhwcToNchw) in fn(), with their input shapes, and the port's
+    `layout.copies`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainfm_tpu_torch.utils import profiling
+
+    fn()   # cuDNN's algorithm search outside the profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof, profiling.recording():
+        fn()
+        torch.cuda.synchronize(dev)
+    ops = [(e.name, e.input_shapes) for e in prof.events()
+           if any("nchwToNhwc" in k.name or "nhwcToNchw" in k.name
+                  for k in e.kernels)]
+    return ops, profiling.COUNTS.get("layout.copies", 0)
+
+
+def _one_channel_conv(op):
+    """The network's first convolution, on its one input channel, which
+    cuDNN widens to its vector width in a layout kernel of its own
+    whatever the layout (the NCDHW network launched the same)."""
+    name, shapes = op
+    x = shapes[0] if name == "aten::cudnn_convolution" else shapes[1]
+    return "convolution" in name and len(x) == 5 and x[1] == 1
+
+
+def test_unet_on_the_card_converts_no_layout(dev):
+    """A flagship-config training step at 64^3 (bf16, save_convs: the
+    forward, its recomputation and the backward) and a served forward at
+    68^3, whose deepest decoder levels upsample and concatenate: no layout
+    conversion kernel but the first convolution's, and the port copies
+    nothing to change a layout."""
+    cfg, model, weight_dict, loss_fn, batch = _flagship_small(dev, 64)
+    ops, copies = _layout_kernels(
+        lambda: _step_loss_grads(cfg, model, weight_dict, loss_fn, batch),
+        dev)
+    assert copies == 0
+    assert all(_one_channel_conv(op) for op in ops), ops
+    x = torch.rand((1, 68, 68, 68, 1), device=dev)
+
+    def serve():
+        with torch.inference_mode(), torch.autocast("cuda",
+                                                    dtype=torch.bfloat16):
+            model(x)
+
+    ops, copies = _layout_kernels(serve, dev)
+    assert copies == 0
+    assert all(_one_channel_conv(op) for op in ops), ops

@@ -408,3 +408,181 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     assert torch.equal(y, gn.chan_affine_plain(x.bfloat16(), a, a))
     with pytest.raises(ValueError):
         gn._sums_cuda(x, None)
+
+
+# ---- the channels-last (NDHWC) form against the NCDHW one ----
+# The same functions on the same values held NDHWC (`channels_last_3d`,
+# the card's layout; the CPU takes the plain versions, which keep it):
+# the values and gradients of the NCDHW inputs, and the outputs NDHWC.
+# fp64 where nothing convolves (the two sum in other orders: VAL_TOL and
+# GRAD_TOL); float32 where a convolution runs, since the CPU's fp64
+# convolution returns NCDHW whatever its input (the values within 1e-5 of
+# their largest magnitude and the gradients within 1e-5 relative L2:
+# oneDNN's NDHWC and NCDHW algorithms sum in other orders).
+CL_VAL_REL = 1e-5
+CL_GRAD_REL = 1e-5
+
+
+def _last(t):
+    """t's values with channels innermost (N, ..., C) in memory."""
+    return t.detach().movedim(1, -1).contiguous().movedim(-1, 1)
+
+
+def _is_last(t):
+    """Channels innermost in memory: dense NDHWC, or a channel slice of
+    one (a head's output)."""
+    p = t.movedim(1, -1)
+    return p.stride(-1) == 1 and all(
+        p.stride(i) >= p.stride(i + 1) * p.shape[i + 1]
+        for i in range(p.dim() - 1))
+
+
+def _gn_case(B, C, spatial, dt=torch.float64, seed=0):
+    rng = np.random.default_rng(seed + C)
+    x = torch.from_numpy(rng.standard_normal((B, C, *spatial)) * 2 + 0.5)
+    return (x.to(dt), torch.from_numpy(rng.standard_normal(C)).to(dt),
+            torch.from_numpy(rng.standard_normal(C)).to(dt),
+            torch.from_numpy(rng.standard_normal(x.shape)).to(dt))
+
+
+def _cl_plain(kind, B, C, spatial):
+    x, _, _, g = _gn_case(B, C, spatial)
+    a, b = (torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (B, C))) for s in (1, 2))
+    fn = {"chan_sums_plain": lambda t, u: gn.chan_sums_plain(u, t),
+          "chan_affine_plain": lambda t, u: gn.chan_affine_plain(t, a, b),
+          "chan_affine3_plain": lambda t, u: gn.chan_affine3_plain(
+              u, t, a, b, a * b)}[kind]
+    return fn, [x, g], [], lambda out: out if kind != "chan_sums_plain" \
+        else None
+
+
+def _cl_fused(B, C, spatial):
+    x, s, b, _ = _gn_case(B, C, spatial)
+    return (lambda t, s, b: gn.fused_group_norm(t, s, b, 8)), [x], [s, b], \
+        lambda out: out
+
+
+def _cl_pair(B, ce, cz, coarse):
+    enc, z, scale, bias, _, _ = _pair_inputs(B, ce, cz, coarse, ce + cz)
+    t = [torch.from_numpy(a) for a in (enc, z, scale, bias)]
+    return (lambda e, zz, s, b: gn.pair_group_norm(e, zz, s, b, 8)), \
+        t[:2], t[2:], lambda out: out
+
+
+def _cl_phase_conv(ce, cz, co, coarse):
+    rng = np.random.default_rng(ce * cz)
+    fine = tuple(2 * n for n in coarse)
+    enc, z = (torch.from_numpy(rng.standard_normal((2, c, *s))).float()
+              for c, s in ((ce, fine), (cz, coarse)))
+    w = torch.from_numpy(rng.standard_normal((co, ce + cz, 3, 3, 3))).float()
+    return t3.phase_pair_conv, [enc, z], [w], lambda out: out
+
+
+def _cl_upsample(src, tgt):
+    x = torch.from_numpy(np.random.default_rng(sum(tgt)).standard_normal(
+        (2, 3, *src)))
+    return (lambda t: t3._nearest_upsample_to(t, tgt)), [x], [], \
+        lambda out: out
+
+
+def _cl_head():
+    from brainfm_tpu_torch.models.heads import TaskHead
+
+    torch.manual_seed(3)
+    head = TaskHead(8, (8, 8), {"T1": 1, "seg": 5, "age": -1},
+                    size=(16, 16, 16))
+    x = torch.randn(2, 8, 16, 16, 16)
+    return (lambda t, *p: tuple(head([t]).values())), [x], \
+        list(head.parameters()), lambda out: out[:2]
+
+
+def _cl_unet(size):
+    torch.manual_seed(size)
+    net = t3.UNet3D(in_channels=3, f_maps=8, num_levels=3)
+    x = torch.randn(2, 3, size, size, size)
+    return (lambda t, *p: tuple(net.get_feature(t))), [x], \
+        list(net.parameters()), lambda out: out
+
+
+CL_CASES = {
+    **{f"{k} {c}": (lambda k=k, c=c: _cl_plain(k, *c))
+       for k in ("chan_sums_plain", "chan_affine_plain",
+                 "chan_affine3_plain") for c in GN_CASES},
+    **{f"fused_group_norm {c}": (lambda c=c: _cl_fused(*c))
+       for c in GN_CASES},
+    **{f"pair_group_norm {c}": (lambda c=c: _cl_pair(*c))
+       for c in PAIR_CASES},
+    "phase_pair_conv": lambda: _cl_phase_conv(8, 16, 8, (2, 3, 3)),
+    **{f"nearest_upsample {tgt}": (lambda tgt=tgt: _cl_upsample(
+        (4, 5, 3), tgt)) for tgt in ((8, 10, 6), (7, 9, 5), (12, 15, 9))},
+    "task_head": _cl_head,
+    # every decoder level on the pair at 16^3; at 18^3 one upsamples
+    # (9 -> 18 is a pair, 4 -> 9 gathers) and concatenates
+    "unet3d 16": lambda: _cl_unet(16),
+    "unet3d 18": lambda: _cl_unet(18),
+}
+
+
+def _rel_l2_t(got, want):
+    return float((got - want).double().norm()
+                 / want.double().norm().clamp(min=1e-300))
+
+
+@pytest.mark.parametrize("case", list(CL_CASES))
+def test_channels_last_gives_the_ncdhw_values_and_gradients(case):
+    fn, acts, params, laid_out = CL_CASES[case]()
+    fp32 = acts[0].dtype == torch.float32
+    res = []
+    for layout in (lambda t: t.detach().clone(), _last):
+        ins = [layout(t).requires_grad_(True) for t in acts]
+        ps = [p.detach().clone().requires_grad_(True) for p in params]
+        out = fn(*ins, *ps)
+        out = out if isinstance(out, tuple) else (out,)
+        rng = np.random.default_rng(1)
+        # the incoming gradients in their outputs' layouts
+        ws = [torch.empty_like(o).copy_(torch.from_numpy(
+            rng.standard_normal(o.shape))) for o in out]
+        grads = torch.autograd.grad(out, ins + ps, ws, allow_unused=True)
+        res.append((out, grads, ins))
+    (oa, ga, _), (ob, gb, ib) = res
+    for a, b in zip(oa, ob):
+        if fp32:
+            assert float((a - b).abs().max()) <= CL_VAL_REL * float(
+                a.abs().max()), case
+        else:
+            _close(b.detach(), a.detach(), VAL_TOL)
+    for a, b in zip(ga, gb):
+        if a is None:
+            assert b is None
+        elif fp32:
+            assert _rel_l2_t(b, a) <= CL_GRAD_REL, case
+        else:
+            _close(b, a, GRAD_TOL)
+    checked = laid_out(ob)
+    if checked is not None:
+        for o in checked:
+            assert o.dim() < 3 or _is_last(o), (case, o.stride())
+    for g in gb[:len(ib)]:
+        assert g is None or _is_last(g), (case, g.stride())
+
+
+@pytest.mark.parametrize("where", ["card", "cpu", "space scope", "2-d"])
+def test_model_input_keeps_the_cards_channels_last_strides(where):
+    """The joiners' (N, D, H, W, C) input: on the card (a meta tensor takes
+    that branch) the permute's NDHWC strides, no copy; on the CPU, in a
+    space scope and for the 2-D UNet plain NCDHW / NCHW strides."""
+    from brainfm_tpu_torch.models.build import _model_input
+    from brainfm_tpu_torch.parallel.spatial import use_scope
+
+    dev = "cpu" if where == "cpu" else "meta"
+    x = torch.empty((2, 20, 18, 16, 2) if where != "2-d" else (2, 18, 16, 2),
+                    device=dev)
+    with use_scope(object() if where == "space scope" else None):
+        got = _model_input(x)
+    assert got.shape == x.movedim(-1, 1).shape
+    if where == "card":
+        assert got.stride() == x.movedim(-1, 1).stride()
+        assert t3.channels_last(got)
+    else:
+        assert got.is_contiguous()
