@@ -21,56 +21,41 @@
 // (__fmul_rn, __fadd_rn), so they are bitwise equal to them; K3 sums in
 // another order, to within the statistics type's rounding.
 //
-// Two layouts, one kernel family each, chosen by `channels`:
-//  - NC rows (channels == 0): (rows, S) with rows = N * C and S the
-//    spatial extent, each row contiguous (NCDHW, NCHW).
-//  - channels-last (channels == C): each sample (S, C) with C innermost
-//    (NDHWC, `torch.channels_last_3d`), the layout the 3-D network runs in
-//    on the card. The `cl_` kernels.
-// The wrapper refuses any other strides. Types: bf16, fp32 and fp64
-// inputs, one template each; sums and the affine in fp32 (fp64 for fp64
-// inputs).
+// One layout: each of the N samples is (S, C) with C innermost and S the
+// spatial extent (NDHWC, `torch.channels_last_3d`, the layout the 3-D
+// network runs in on the card; NHWC in 2-D). The C entry points refuse
+// any other extents with cudaErrorInvalidValue, and the wrapper refuses
+// other strides. Types: bf16, fp32 and fp64 inputs, one template each;
+// sums and the affine in fp32 (fp64 for fp64 inputs).
 //
 // Bound on the H100: bytes. K3 reads its inputs once and writes 2 numbers
 // a (sample, channel); K4 reads x and writes y; K5 reads dy and x and
 // writes dx. The coefficients are a few KB.
 //
-// Design, NC rows. The library's GroupNorm runs one block per (sample,
-// group) row: 8 blocks on 132 SMs at batch 1. Here every row is split over
-// many blocks: K3 as a two-stage reduction (grid (rows, chunks) of partial
-// sums, each block reducing in a fixed tree, then one thread per row
-// adding its chunks in order: no float atomics, so two runs are bitwise
-// equal), K4 and K5 as grids (rows, S / 8192) with each block's
-// coefficients loaded once. Loads and stores are 16 B a thread where a
-// row's length is a multiple of 16 B and the pointers are 16-B aligned,
-// one element a thread otherwise.
-//
-// Design, channels-last. A voxel is C contiguous values, so a 16-B vector
-// holds 8 bf16 channels (4 fp32, 2 fp64) of one voxel. A block's threads
-// form a tile of `rows` voxels by `ct` channel vectors (ct = C / V up to
-// the block's 256 threads, rows = 256 / ct): consecutive threads read
-// consecutive vectors of consecutive voxels, and each thread keeps one
-// channel vector for the whole block, so its coefficients sit in registers,
-// loaded once. Wider voxels (C / V > 256) take passes of 256 vectors. K4
-// and K5 run on grids (voxel chunks, N). K3's stage 1 runs on (chunks, N):
-// each thread accumulates its vector's V channels over the block's voxels,
-// the block reduces its rows in shared memory in a fixed order and writes
-// (C, 2) partials; stage 2 (`cl_sums_finish`) adds each (sample, channel)'s
-// chunks with 32 lanes and a fixed tree, so two runs are bitwise equal.
-// Vectors need C a multiple of V and 16-B aligned pointers; otherwise V is
-// one element.
+// Design. A voxel is C contiguous values, so a 16-B vector holds 8 bf16
+// channels (4 fp32, 2 fp64) of one voxel. A block's threads form a tile of
+// `rows` voxels by `ct` channel vectors (ct = C / V up to the block's 256
+// threads, rows = 256 / ct): consecutive threads read consecutive vectors
+// of consecutive voxels, and each thread keeps one channel vector for the
+// whole block, so its coefficients sit in registers, loaded once. Wider
+// voxels (C / V > 256) take passes of 256 vectors. K4 and K5 run on grids
+// (voxel chunks, N). K3's stage 1 runs on (chunks, N): each thread
+// accumulates its vector's V channels over the block's voxels, the block
+// reduces its rows in shared memory in a fixed order and writes (C, 2)
+// partials; stage 2 (`sums_finish`) adds each (sample, channel)'s chunks
+// with 32 lanes and a fixed tree: no float atomics, so two runs are
+// bitwise equal. Vectors need C a multiple of V and 16-B aligned pointers;
+// otherwise V is one element (a one-channel input: one voxel a thread).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <initializer_list>
-
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// elements a block of K4 / K5 covers: 4 vectors of 16 B a thread at bf16
+// about the elements a block of K4 / K5 covers: 4 vectors of 16 B a thread
+// at bf16
 constexpr int64_t kAffineChunk = (int64_t)kThreads * 8 * 4;
 constexpr int kMaxGridY = 65535;
 
@@ -113,133 +98,12 @@ __device__ __forceinline__ typename Acc<T>::type in_t(
   return up(t);
 }
 
-// 16 bytes of T
-template <typename T> struct alignas(16) Pack {
-  static constexpr int N = 16 / sizeof(T);
-  T v[N];
-};
+// values of T in 16 bytes
+template <typename T> constexpr int kVec = 16 / (int)sizeof(T);
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// the block's sum of a, in a fixed order: each warp by shuffles, then
-// thread 0 over the warps in order; valid in thread 0
-template <typename A>
-__device__ __forceinline__ A block_sum(A a, A* smem) {
-  for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
-  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = a;
-  __syncthreads();
-  A s = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) s += smem[w];
-  __syncthreads();
-  return s;
-}
-
-// K3 stage 1: block (row, k) writes part[row, k] = (sum u, sum u*v) over
-// the row's elements [k * chunk, (k + 1) * chunk). kSquare: v is u.
-template <typename T, bool kVec, bool kSquare>
-__global__ void __launch_bounds__(kThreads)
-    sums_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                typename Acc<T>::type* __restrict__ part, int64_t S,
-                int64_t chunk) {
-  using A = typename Acc<T>::type;
-  __shared__ A smem[kWarps];
-  const int64_t row = blockIdx.x;
-  const int chunks = gridDim.y;
-  const int64_t s0 = (int64_t)blockIdx.y * chunk;
-  const int64_t s1 = s0 + chunk < S ? s0 + chunk : S;
-  const T* ur = u + row * S;
-  const T* vr = kSquare ? ur : v + row * S;
-  A a1 = 0, a2 = 0;
-  if (kVec) {
-    constexpr int N = Pack<T>::N;
-    const Pack<T>* up4 = reinterpret_cast<const Pack<T>*>(ur);
-    const Pack<T>* vp4 = reinterpret_cast<const Pack<T>*>(vr);
-    for (int64_t i = s0 / N + threadIdx.x; i < s1 / N; i += kThreads) {
-      const Pack<T> pu = up4[i];
-      if (kSquare) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const A x = up(pu.v[j]);
-          a1 += x;
-          a2 += x * x;
-        }
-      } else {
-        const Pack<T> pv = vp4[i];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const A x = up(pu.v[j]);
-          a1 += x;
-          a2 += x * up(pv.v[j]);
-        }
-      }
-    }
-  } else {
-    for (int64_t i = s0 + threadIdx.x; i < s1; i += kThreads) {
-      const A x = up(ur[i]);
-      a1 += x;
-      a2 += x * (kSquare ? x : up(vr[i]));
-    }
-  }
-  a1 = block_sum(a1, smem);
-  a2 = block_sum(a2, smem);
-  if (threadIdx.x == 0) {
-    part[(row * chunks + blockIdx.y) * 2] = a1;
-    part[(row * chunks + blockIdx.y) * 2 + 1] = a2;
-  }
-}
-
-// K3 stage 2: out[0, row] = sum_k part[row, k, 0], out[1, row] likewise,
-// over k in order
-template <typename A>
-__global__ void __launch_bounds__(kThreads)
-    sums_finish(const A* __restrict__ part, A* __restrict__ out,
-                int64_t rows, int chunks) {
-  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  A s1 = 0, s2 = 0;
-  for (int k = 0; k < chunks; ++k) {
-    s1 += part[(r * chunks + k) * 2];
-    s2 += part[(r * chunks + k) * 2 + 1];
-  }
-  out[r] = s1;
-  out[rows + r] = s2;
-}
-
-// K4: y = x * a[row] + b[row] in A, stored in T
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    affine_kernel(const T* __restrict__ x,
-                  const typename Acc<T>::type* __restrict__ a,
-                  const typename Acc<T>::type* __restrict__ b,
-                  T* __restrict__ y, int64_t S) {
-  using A = typename Acc<T>::type;
-  const int64_t row = blockIdx.x;
-  const A ca = a[row], cb = b[row];
-  const int64_t s0 = (int64_t)blockIdx.y * kAffineChunk;
-  const int64_t s1 = s0 + kAffineChunk < S ? s0 + kAffineChunk : S;
-  const T* xr = x + row * S;
-  T* yr = y + row * S;
-  if (kVec) {
-    constexpr int N = Pack<T>::N;
-    const Pack<T>* x4 = reinterpret_cast<const Pack<T>*>(xr);
-    Pack<T>* y4 = reinterpret_cast<Pack<T>*>(yr);
-    for (int64_t i = s0 / N + threadIdx.x; i < s1 / N; i += kThreads) {
-      const Pack<T> px = x4[i];
-      Pack<T> py;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        down(add_rn(mul_rn(up(px.v[j]), ca), cb), py.v[j]);
-      y4[i] = py;
-    }
-  } else {
-    for (int64_t i = s0 + threadIdx.x; i < s1; i += kThreads)
-      down(add_rn(mul_rn(up(xr[i]), ca), cb), yr[i]);
-  }
-}
-
-// K5: dx = ((dy * P[row]) + (x * Q[row])) + R[row], each operation rounded
-// to T
+// dx = ((dy * p) + (x * q)) + r, each operation rounded to T
 template <typename T>
 __device__ __forceinline__ T combine3(T dy, T x, typename Acc<T>::type p,
                                      typename Acc<T>::type q,
@@ -252,39 +116,6 @@ __device__ __forceinline__ T combine3(T dy, T x, typename Acc<T>::type p,
   down(add_rn(t3, r), out);
   return out;
 }
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    affine3_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                   const T* __restrict__ P, const T* __restrict__ Q,
-                   const T* __restrict__ R, T* __restrict__ dx, int64_t S) {
-  using A = typename Acc<T>::type;
-  const int64_t row = blockIdx.x;
-  const A p = up(P[row]), q = up(Q[row]), r = up(R[row]);
-  const int64_t s0 = (int64_t)blockIdx.y * kAffineChunk;
-  const int64_t s1 = s0 + kAffineChunk < S ? s0 + kAffineChunk : S;
-  const T* dyr = dy + row * S;
-  const T* xr = x + row * S;
-  T* dxr = dx + row * S;
-  if (kVec) {
-    constexpr int N = Pack<T>::N;
-    const Pack<T>* g4 = reinterpret_cast<const Pack<T>*>(dyr);
-    const Pack<T>* x4 = reinterpret_cast<const Pack<T>*>(xr);
-    Pack<T>* d4 = reinterpret_cast<Pack<T>*>(dxr);
-    for (int64_t i = s0 / N + threadIdx.x; i < s1 / N; i += kThreads) {
-      const Pack<T> pg = g4[i], px = x4[i];
-      Pack<T> pd;
-#pragma unroll
-      for (int j = 0; j < N; ++j) pd.v[j] = combine3(pg.v[j], px.v[j], p, q, r);
-      d4[i] = pd;
-    }
-  } else {
-    for (int64_t i = s0 + threadIdx.x; i < s1; i += kThreads)
-      dxr[i] = combine3(dyr[i], xr[i], p, q, r);
-  }
-}
-
-// ---- channels-last: each sample (S, C), C innermost ----
 
 // V values of T, loaded and stored as one access
 template <typename T, int V> struct alignas(sizeof(T) * V) Vec {
@@ -320,17 +151,16 @@ __device__ __forceinline__ void add_sums(typename Acc<T>::type* a1,
   }
 }
 
-// loads a thread of channels-last K3 keeps in flight
+// loads a thread of K3 keeps in flight
 constexpr int kBatch = 4;
 
-// K3 stage 1, channels-last: block (k, n) writes part[n * C + c, k] =
-// (sum u, sum u*v) over channel c of voxels [k * vchunk, (k + 1) * vchunk)
-// of sample n
+// K3 stage 1: block (k, n) writes part[n * C + c, k] = (sum u, sum u*v)
+// over channel c of voxels [k * vchunk, (k + 1) * vchunk) of sample n
 template <typename T, int V, bool kSquare>
 __global__ void __launch_bounds__(kThreads)
-    cl_sums_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                   typename Acc<T>::type* __restrict__ part, int64_t S,
-                   int C, int64_t vchunk) {
+    sums_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                typename Acc<T>::type* __restrict__ part, int64_t S, int C,
+                int64_t vchunk) {
   using A = typename Acc<T>::type;
   __shared__ A red[2 * V][kThreads];
   const Tile t(C, V);
@@ -387,16 +217,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K3 stage 2, channels-last: out[0, n * C + c] = sum_k part[n * C + c, k,
-// 0], out[1, ...] likewise; a block is 32 channels by kLanes lanes, lane l
-// adding chunks l, l + kLanes, ... in order, then the lanes in order
+// K3 stage 2: out[0, n * C + c] = sum_k part[n * C + c, k, 0], out[1,
+// ...] likewise; a block is 32 channels by kLanes lanes, lane l adding
+// chunks l, l + kLanes, ... in order, then the lanes in order
 constexpr int kLanes = 32;
 constexpr int kFinishThreads = 32 * kLanes;
 
 template <typename A>
 __global__ void __launch_bounds__(kFinishThreads)
-    cl_sums_finish(const A* __restrict__ part, A* __restrict__ out,
-                   int64_t rows, int C, int chunks) {
+    sums_finish(const A* __restrict__ part, A* __restrict__ out,
+                int64_t rows, int C, int chunks) {
   __shared__ A red[2][kLanes][32];
   const int cx = threadIdx.x & 31, lane = threadIdx.x >> 5;
   const int64_t c = (int64_t)blockIdx.x * 32 + cx;
@@ -421,14 +251,14 @@ __global__ void __launch_bounds__(kFinishThreads)
   }
 }
 
-// K4, channels-last: y = x * a[n, c] + b[n, c] in A, stored in T, over
-// voxels [k * vchunk, (k + 1) * vchunk) of sample n for block (k, n)
+// K4: y = x * a[n, c] + b[n, c] in A, stored in T, over voxels
+// [k * vchunk, (k + 1) * vchunk) of sample n for block (k, n)
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-    cl_affine_kernel(const T* __restrict__ x,
-                     const typename Acc<T>::type* __restrict__ a,
-                     const typename Acc<T>::type* __restrict__ b,
-                     T* __restrict__ y, int64_t S, int C, int64_t vchunk) {
+    affine_kernel(const T* __restrict__ x,
+                  const typename Acc<T>::type* __restrict__ a,
+                  const typename Acc<T>::type* __restrict__ b,
+                  T* __restrict__ y, int64_t S, int C, int64_t vchunk) {
   using A = typename Acc<T>::type;
   const Tile t(C, V);
   const int64_t n = blockIdx.y;
@@ -458,14 +288,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K5, channels-last: dx = ((dy * P[n, c]) + (x * Q[n, c])) + R[n, c], each
-// operation rounded to T
+// K5: dx = ((dy * P[n, c]) + (x * Q[n, c])) + R[n, c], each operation
+// rounded to T
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-    cl_affine3_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                      const T* __restrict__ P, const T* __restrict__ Q,
-                      const T* __restrict__ R, T* __restrict__ dx,
-                      int64_t S, int C, int64_t vchunk) {
+    affine3_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                   const T* __restrict__ P, const T* __restrict__ Q,
+                   const T* __restrict__ R, T* __restrict__ dx, int64_t S,
+                   int C, int64_t vchunk) {
   using A = typename Acc<T>::type;
   const Tile t(C, V);
   const int64_t n = blockIdx.y;
@@ -499,72 +329,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-bool vec_ok(int64_t S, std::initializer_list<const void*> ptrs) {
-  if (S % Pack<T>::N) return false;
-  for (const void* p : ptrs)
-    if (p != nullptr && !aligned16(p)) return false;
-  return true;
-}
-
-template <typename T>
-int launch_sums(const void* u, const void* v, void* part, void* out,
-                int64_t rows, int64_t S, int64_t chunk, int chunks,
-                cudaStream_t s) {
-  using A = typename Acc<T>::type;
-  const T* ut = (const T*)u;
-  A* pt = (A*)part;
-  const dim3 grid((unsigned)rows, (unsigned)chunks);
-  const bool vec = chunk % Pack<T>::N == 0 && vec_ok<T>(S, {u, v});
-  auto kernel = v == nullptr
-                    ? (vec ? sums_kernel<T, true, true>
-                           : sums_kernel<T, false, true>)
-                    : (vec ? sums_kernel<T, true, false>
-                           : sums_kernel<T, false, false>);
-  kernel<<<grid, kThreads, 0, s>>>(ut, v == nullptr ? ut : (const T*)v, pt,
-                                   S, chunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((rows + kThreads - 1) / kThreads);
-  sums_finish<A><<<blocks, kThreads, 0, s>>>(pt, (A*)out, rows, chunks);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_affine(const void* x, const void* a, const void* b, void* y,
-                  int64_t rows, int64_t S, cudaStream_t s) {
-  using A = typename Acc<T>::type;
-  const dim3 grid((unsigned)rows,
-                  (unsigned)((S + kAffineChunk - 1) / kAffineChunk));
-  if (vec_ok<T>(S, {x, y}))
-    affine_kernel<T, true><<<grid, kThreads, 0, s>>>(
-        (const T*)x, (const A*)a, (const A*)b, (T*)y, S);
-  else
-    affine_kernel<T, false><<<grid, kThreads, 0, s>>>(
-        (const T*)x, (const A*)a, (const A*)b, (T*)y, S);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_affine3(const void* dy, const void* x, const void* P,
-                   const void* Q, const void* R, void* dx, int64_t rows,
-                   int64_t S, cudaStream_t s) {
-  const dim3 grid((unsigned)rows,
-                  (unsigned)((S + kAffineChunk - 1) / kAffineChunk));
-  if (vec_ok<T>(S, {dy, x, dx}))
-    affine3_kernel<T, true><<<grid, kThreads, 0, s>>>(
-        (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
-        (T*)dx, S);
-  else
-    affine3_kernel<T, false><<<grid, kThreads, 0, s>>>(
-        (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
-        (T*)dx, S);
-  return (int)cudaGetLastError();
-}
-
-// voxels a block of channels-last K4 / K5 covers: a multiple of the
-// tile's rows, at least 4 steps and about kAffineChunk elements
-int64_t cl_vchunk(int C, int V) {
+// voxels a block of K4 / K5 covers: a multiple of the tile's rows, at
+// least 4 steps and about kAffineChunk elements
+int64_t vchunk_of(int C, int V) {
   const int cv = C / V;
   const int64_t rows = kThreads / (cv < kThreads ? cv : kThreads);
   int64_t steps = (kAffineChunk + rows * C - 1) / (rows * C);
@@ -573,11 +340,11 @@ int64_t cl_vchunk(int C, int V) {
 }
 
 template <typename T>
-int launch_cl_sums(const void* u, const void* v, void* part, void* out,
-                   int64_t N, int64_t S, int C, int64_t vchunk, int chunks,
-                   cudaStream_t s) {
+int launch_sums(const void* u, const void* v, void* part, void* out,
+                int64_t N, int64_t S, int C, int64_t vchunk, int chunks,
+                cudaStream_t s) {
   using A = typename Acc<T>::type;
-  constexpr int V = Pack<T>::N;
+  constexpr int V = kVec<T>;
   const T* ut = (const T*)u;
   const T* vt = v == nullptr ? ut : (const T*)v;
   A* pt = (A*)part;
@@ -585,181 +352,122 @@ int launch_cl_sums(const void* u, const void* v, void* part, void* out,
   const bool vec = C % V == 0 && aligned16(u) && (v == nullptr ||
                                                    aligned16(v));
   if (vec && v == nullptr)
-    cl_sums_kernel<T, V, true><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
-                                                         vchunk);
+    sums_kernel<T, V, true><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                      vchunk);
   else if (vec)
-    cl_sums_kernel<T, V, false><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
-                                                          vchunk);
+    sums_kernel<T, V, false><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                       vchunk);
   else if (v == nullptr)
-    cl_sums_kernel<T, 1, true><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
-                                                         vchunk);
+    sums_kernel<T, 1, true><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                      vchunk);
   else
-    cl_sums_kernel<T, 1, false><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
-                                                          vchunk);
+    sums_kernel<T, 1, false><<<grid, kThreads, 0, s>>>(ut, vt, pt, S, C,
+                                                       vchunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 fgrid((unsigned)((C + 31) / 32), (unsigned)N);
-  cl_sums_finish<A><<<fgrid, kFinishThreads, 0, s>>>(pt, (A*)out, N * C, C,
-                                                chunks);
+  sums_finish<A><<<fgrid, kFinishThreads, 0, s>>>(pt, (A*)out, N * C, C,
+                                                   chunks);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_cl_affine(const void* x, const void* a, const void* b, void* y,
-                     int64_t N, int64_t S, int C, cudaStream_t s) {
+int launch_affine(const void* x, const void* a, const void* b, void* y,
+                  int64_t N, int64_t S, int C, cudaStream_t s) {
   using A = typename Acc<T>::type;
-  constexpr int V = Pack<T>::N;
+  constexpr int V = kVec<T>;
   const bool vec = C % V == 0 && aligned16(x) && aligned16(y);
-  const int64_t vchunk = cl_vchunk(C, vec ? V : 1);
+  const int64_t vchunk = vchunk_of(C, vec ? V : 1);
   const dim3 grid((unsigned)((S + vchunk - 1) / vchunk), (unsigned)N);
   if (vec)
-    cl_affine_kernel<T, V><<<grid, kThreads, 0, s>>>(
+    affine_kernel<T, V><<<grid, kThreads, 0, s>>>(
         (const T*)x, (const A*)a, (const A*)b, (T*)y, S, C, vchunk);
   else
-    cl_affine_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+    affine_kernel<T, 1><<<grid, kThreads, 0, s>>>(
         (const T*)x, (const A*)a, (const A*)b, (T*)y, S, C, vchunk);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_cl_affine3(const void* dy, const void* x, const void* P,
-                      const void* Q, const void* R, void* dx, int64_t N,
-                      int64_t S, int C, cudaStream_t s) {
-  constexpr int V = Pack<T>::N;
+int launch_affine3(const void* dy, const void* x, const void* P,
+                   const void* Q, const void* R, void* dx, int64_t N,
+                   int64_t S, int C, cudaStream_t s) {
+  constexpr int V = kVec<T>;
   const bool vec = C % V == 0 && aligned16(dy) && aligned16(x) &&
                    aligned16(dx);
-  const int64_t vchunk = cl_vchunk(C, vec ? V : 1);
+  const int64_t vchunk = vchunk_of(C, vec ? V : 1);
   const dim3 grid((unsigned)((S + vchunk - 1) / vchunk), (unsigned)N);
   if (vec)
-    cl_affine3_kernel<T, V><<<grid, kThreads, 0, s>>>(
+    affine3_kernel<T, V><<<grid, kThreads, 0, s>>>(
         (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
         (T*)dx, S, C, vchunk);
   else
-    cl_affine3_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+    affine3_kernel<T, 1><<<grid, kThreads, 0, s>>>(
         (const T*)dy, (const T*)x, (const T*)P, (const T*)Q, (const T*)R,
         (T*)dx, S, C, vchunk);
   return (int)cudaGetLastError();
 }
 
-// a channels-last call's grid: N samples on y, blocks on x
-bool cl_grid_ok(long long rows, int C, long long S, long long xblocks) {
-  return C > 0 && rows % C == 0 && rows / C <= kMaxGridY && xblocks > 0 &&
-         xblocks <= 0x7fffffffLL && S > 0;
-}
-
-// the grid's limits: rows on x (up to 2^31 - 1), chunks on y
-bool grid_ok(long long rows, long long ychunks) {
-  return rows > 0 && rows <= 0x7fffffffLL && ychunks > 0 &&
-         ychunks <= kMaxGridY;
+// the grid: N samples on y, blocks on x
+bool grid_ok(long long N, int C, long long S, long long xblocks) {
+  return N > 0 && N <= kMaxGridY && C > 0 && S >= 0 && xblocks > 0 &&
+         xblocks <= 0x7fffffffLL;
 }
 
 }  // namespace
 
-// K3: out (2, rows) = per (sample, channel) row (sum u, sum u * v); v ==
-// NULL means v = u. part is scratch of rows * chunks * 2 statistics-type
-// values. NC rows (channels == 0): each block covers `chunk` elements of a
-// row (chunks * chunk >= S). Channels-last (channels == C, rows = N * C):
-// each block covers `chunk` voxels of a sample (chunks * chunk >= S).
+// K3: out (2, N, C) = per (sample, channel) (sum u, sum u * v) over the
+// S voxels of (N, S, C) operands; v == NULL means v = u. part is scratch
+// of N * C * chunks * 2 statistics-type values; each block covers `chunk`
+// voxels of a sample (chunks * chunk >= S).
 extern "C" int chan_sums(const void* u, const void* v, void* part, void* out,
-                         int dtype, long long rows, long long S,
-                         long long chunk, int chunks, int channels,
-                         void* stream) {
-  if (rows == 0) return (int)cudaGetLastError();
+                         int dtype, long long N, long long S, int C,
+                         long long chunk, int chunks, void* stream) {
+  if (N == 0 || C == 0) return (int)cudaGetLastError();
+  if (!grid_ok(N, C, S, chunks) || chunk <= 0 || chunk * chunks < S)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (channels > 0) {
-    if (!cl_grid_ok(rows, channels, S, chunks) || chunk <= 0 ||
-        chunk * chunks < S)
-      return (int)cudaErrorInvalidValue;
-    const long long N = rows / channels;
-    switch (dtype) {
-      case kBF16:
-        return launch_cl_sums<__nv_bfloat16>(u, v, part, out, N, S,
-                                             channels, chunk, chunks, s);
-      case kF32:
-        return launch_cl_sums<float>(u, v, part, out, N, S, channels, chunk,
-                                     chunks, s);
-      case kF64:
-        return launch_cl_sums<double>(u, v, part, out, N, S, channels,
-                                      chunk, chunks, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  if (!grid_ok(rows, chunks) || chunk <= 0 || chunk * chunks < S)
-    return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kBF16:
-      return launch_sums<__nv_bfloat16>(u, v, part, out, rows, S, chunk,
+      return launch_sums<__nv_bfloat16>(u, v, part, out, N, S, C, chunk,
                                         chunks, s);
     case kF32:
-      return launch_sums<float>(u, v, part, out, rows, S, chunk, chunks, s);
+      return launch_sums<float>(u, v, part, out, N, S, C, chunk, chunks, s);
     case kF64:
-      return launch_sums<double>(u, v, part, out, rows, S, chunk, chunks, s);
+      return launch_sums<double>(u, v, part, out, N, S, C, chunk, chunks, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K4: y = x * a + b per (sample, channel) row (a, b of rows
-// statistics-type values); channels as chan_sums'
+// K4: y = x * a + b per (sample, channel) of (N, S, C) x and y (a, b of
+// N * C statistics-type values)
 extern "C" int chan_affine(const void* x, const void* a, const void* b,
-                           void* y, int dtype, long long rows, long long S,
-                           int channels, void* stream) {
-  if (rows == 0 || S == 0) return (int)cudaGetLastError();
+                           void* y, int dtype, long long N, long long S,
+                           int C, void* stream) {
+  if (N == 0 || C == 0 || S == 0) return (int)cudaGetLastError();
+  if (!grid_ok(N, C, S, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (channels > 0) {
-    if (!cl_grid_ok(rows, channels, S, S)) return (int)cudaErrorInvalidValue;
-    const long long N = rows / channels;
-    switch (dtype) {
-      case kBF16:
-        return launch_cl_affine<__nv_bfloat16>(x, a, b, y, N, S, channels,
-                                               s);
-      case kF32:
-        return launch_cl_affine<float>(x, a, b, y, N, S, channels, s);
-      case kF64:
-        return launch_cl_affine<double>(x, a, b, y, N, S, channels, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  if (!grid_ok(rows, (S + kAffineChunk - 1) / kAffineChunk))
-    return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case kBF16: return launch_affine<__nv_bfloat16>(x, a, b, y, rows, S, s);
-    case kF32: return launch_affine<float>(x, a, b, y, rows, S, s);
-    case kF64: return launch_affine<double>(x, a, b, y, rows, S, s);
+    case kBF16: return launch_affine<__nv_bfloat16>(x, a, b, y, N, S, C, s);
+    case kF32: return launch_affine<float>(x, a, b, y, N, S, C, s);
+    case kF64: return launch_affine<double>(x, a, b, y, N, S, C, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: dx = dy * P + x * Q + R per (sample, channel) row (P, Q, R of rows
-// values of x's type); channels as chan_sums'
+// K5: dx = dy * P + x * Q + R per (sample, channel) of (N, S, C) dy, x and
+// dx (P, Q, R of N * C values of x's type)
 extern "C" int chan_affine3(const void* dy, const void* x, const void* P,
                             const void* Q, const void* R, void* dx, int dtype,
-                            long long rows, long long S, int channels,
-                            void* stream) {
-  if (rows == 0 || S == 0) return (int)cudaGetLastError();
+                            long long N, long long S, int C, void* stream) {
+  if (N == 0 || C == 0 || S == 0) return (int)cudaGetLastError();
+  if (!grid_ok(N, C, S, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (channels > 0) {
-    if (!cl_grid_ok(rows, channels, S, S)) return (int)cudaErrorInvalidValue;
-    const long long N = rows / channels;
-    switch (dtype) {
-      case kBF16:
-        return launch_cl_affine3<__nv_bfloat16>(dy, x, P, Q, R, dx, N, S,
-                                                channels, s);
-      case kF32:
-        return launch_cl_affine3<float>(dy, x, P, Q, R, dx, N, S, channels,
-                                        s);
-      case kF64:
-        return launch_cl_affine3<double>(dy, x, P, Q, R, dx, N, S, channels,
-                                         s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  if (!grid_ok(rows, (S + kAffineChunk - 1) / kAffineChunk))
-    return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kBF16:
-      return launch_affine3<__nv_bfloat16>(dy, x, P, Q, R, dx, rows, S, s);
-    case kF32: return launch_affine3<float>(dy, x, P, Q, R, dx, rows, S, s);
-    case kF64: return launch_affine3<double>(dy, x, P, Q, R, dx, rows, S, s);
+      return launch_affine3<__nv_bfloat16>(dy, x, P, Q, R, dx, N, S, C, s);
+    case kF32: return launch_affine3<float>(dy, x, P, Q, R, dx, N, S, C, s);
+    case kF64: return launch_affine3<double>(dy, x, P, Q, R, dx, N, S, C, s);
   }
   return (int)cudaErrorInvalidValue;
 }

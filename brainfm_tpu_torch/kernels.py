@@ -40,7 +40,7 @@ FUNCTIONS = {
     "warp_nearest_i32": ("warp", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
     "lut_gather_f32": ("lut", [_P, _P, _P, _I, _I, _LL, _P]),
     "lut_gather_i32": ("lut", [_P, _P, _P, _I, _I, _LL, _P]),
-    "chan_sums": ("groupnorm", [_P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _I,
+    "chan_sums": ("groupnorm", [_P, _P, _P, _P, _I, _LL, _LL, _I, _LL, _I,
                                 _P]),
     "chan_affine": ("groupnorm", [_P, _P, _P, _P, _I, _LL, _LL, _I, _P]),
     "chan_affine3": ("groupnorm", [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I,

@@ -3,13 +3,13 @@ pair and the frozen pathology critic (port of brainfm_tpu/models/build.py).
 
 The model modules take (N, C, D, H, W) tensors; the joiners take and
 return the JAX package's channels-last layout (N,D,H,W,C) and permute
-once at their boundary, a view. On the card, outside a space scope, that
-view is NDHWC in memory (`torch.channels_last_3d`) and the 3-D network
-runs in it from the input to the heads (models/unet3d.py), so the
-returned feature levels are contiguous (N,D,H,W,C) and each head output
-a channels-innermost view; on the CPU and on a scope's slabs the input is
-copied to NCDHW, as before. Mixed precision is the caller's
-`torch.autocast`, not a compute dtype.
+once at their boundary, a view. On the card, a space scope's slabs
+included, that view is NDHWC in memory (`torch.channels_last_3d`) and the
+3-D network runs in it from the input to the heads (models/unet3d.py), so
+the returned feature levels are contiguous (N,D,H,W,C) and each head
+output a channels-innermost view; on the CPU the input is copied to
+NCDHW. Mixed precision is the caller's `torch.autocast`, not a compute
+dtype.
 
 The two stages of two-stage inpainting are one `TwoStage` module with the
 children `pathol` and `task`, so one optimizer, TrainState and checkpoint
@@ -29,7 +29,6 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.lut import lut_apply
-from ..parallel.spatial import current_space
 from ..synth.constants import LABELS_EXTRACEREBRAL, LABELS_LEFT
 from ..utils.profiling import OFF, annotate, count
 from .heads import TaskHead
@@ -111,18 +110,15 @@ def _to_ncdhw(x):
 
 
 def _model_input(x):
-    """The backbone's (N, C, D, H, W) input. On the card, outside a space
-    scope, a 3-D input keeps the NDHWC strides of the permute (densified
-    if x is a view; the two-stage pair's two-channel stage-1 input is not
-    copied), and the network runs channels-last from here. On the CPU it
-    gets plain NCDHW strides: PyTorch's CPU GroupNorm backward faults on a
-    channels-last input that needs no gradient (the first GroupNorm in
-    training). A scope's slabs and the 2-D UNet stay NCDHW: `space_conv`
-    joins halos along D of NCDHW slabs."""
+    """The backbone's (N, C, D, H, W) input. On the card a 3-D input keeps
+    the NDHWC strides of the permute (densified if x is a view, such as a
+    space scope's slab; the two-stage pair's two-channel stage-1 input is
+    not copied), and the network runs channels-last from here. On the CPU
+    it gets plain NCDHW strides: PyTorch's CPU GroupNorm backward faults on
+    a channels-last input that needs no gradient (the first GroupNorm in
+    training). The 2-D UNet's input is NCHW."""
     x = _to_ncdhw(x)
-    if x.device.type == "cpu":
-        return x.clone(memory_format=torch.contiguous_format)
-    if x.dim() == 5 and current_space() is None:
+    if x.device.type != "cpu" and x.dim() == 5:
         return x.contiguous(memory_format=torch.channels_last_3d)
     return x.clone(memory_format=torch.contiguous_format)
 

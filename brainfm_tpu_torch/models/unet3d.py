@@ -28,8 +28,8 @@ keeps one convolution output per SingleConv, the pair's included.
 
 Memory format. The network runs in its input's: NDHWC
 (`torch.channels_last_3d`, `channels_last`) where the joiners hand it a
-channels-last input (models/build.py: on the card, outside a space
-scope), NCDHW otherwise (the CPU, a scope's slabs, the 2-D UNet). cuDNN's
+channels-last input (models/build.py: on the card, a space scope's slabs
+too), NCDHW otherwise (the CPU, the 2-D UNet). cuDNN's
 3-D bf16 convolutions compute in NDHWC, so in NDHWC nothing is converted
 around them: each convolution's weight is made NDHWC in the one cast to
 autocast's dtype it takes anyway (`conv_weight`; the parameters keep

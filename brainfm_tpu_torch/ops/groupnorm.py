@@ -1,6 +1,6 @@
 """GroupNorm in sums-and-composite-affine form with analytic backwards
 (port of brainfm_tpu/models/unet3d.py `_fgn_stats`, `_fused_groupnorm`
-and `_pair_groupnorm`), NC* layout.
+and `_pair_groupnorm`), on (N, C, ...) tensors.
 
 The formulas are the JAX package's: statistics in
 `promote_types(x.dtype, float32)` (fp32 for bf16 and fp32 inputs, fp64
@@ -31,16 +31,16 @@ CUDA tensors and taking its plain version on CPU tensors only:
   K4 chan_affine(x, a, b)     x * a + b per channel, stored in x's dtype
   K5 chan_affine3(dy, x, P, Q, R)   dy * P + x * Q + R in x's dtype
 
-Each kernel comes in two layouts, picked from the operands' strides:
-contiguous (sample, channel) rows (NCDHW, the CPU's and a space scope's
-layout) and channels-last (N, ..., C) dense (NDHWC, `channels_last_3d`,
-the layout the 3-D network runs in on the card). Anything else raises.
-The outputs keep x's strides. Where the operands of one call hold the two
-layouts, the incoming one (dy, u) is copied into x's and the copy counted
-as `layout.copies` (utils/profiling.py). The formulas, the statistics
-type and what is saved for the backward do not depend on the layout. The
-(B, C) -> (B, G) algebra between the passes is a few tiny tensors in plain
-PyTorch.
+On the card the kernels take one layout, channels-last (N, ..., C) dense
+(NDHWC, `channels_last_3d`, the layout the 3-D network runs in there; a
+tensor with one channel or one voxel is one already). An operand that is
+contiguous (N, C, ...) instead, such as an NCDHW tensor from a caller
+outside the network, is copied once into channels-last and the copy
+counted as `layout.copies` (utils/profiling.py); a view that is neither
+raises. The outputs are channels-last. The CPU's plain versions take
+either layout. The formulas, the statistics type and what is saved for
+the backward do not depend on the layout. The (B, C) -> (B, G) algebra
+between the passes is a few tiny tensors in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -56,16 +56,11 @@ from .. import kernels
 from ..utils.profiling import count
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
-# K3's stage-1 grid: about this many blocks over all rows, each block at
-# least MIN_CHUNK elements of a row; channels-last, about SUMS_BLOCKS_LAST
-# blocks over the samples, each at least MIN_VOXELS voxels and MIN_CHUNK
-# elements
-SUMS_BLOCKS = 2048
-MIN_CHUNK = 4096
-SUMS_BLOCKS_LAST = 1024
-MIN_VOXELS = 32
-# the layouts of the kernels' operands
-ROWS, LAST = "rows", "last"
+# K3's stage-1 grid: about K3_BLOCKS blocks over the samples, each at least
+# K3_MIN_VOXELS voxels and K3_MIN_ELEMENTS elements
+K3_BLOCKS = 1024
+K3_MIN_VOXELS = 32
+K3_MIN_ELEMENTS = 4096
 
 
 def num_groups_of(channels: int, num_groups: int) -> int:
@@ -115,34 +110,20 @@ def chan_affine3_plain(dy, x, P, Q, R):
 
 # ---- the kernels' wrappers ----
 
-def in_layout(t, layout) -> bool:
-    """Whether t (N, C, ...) is dense in `layout`: ROWS, contiguous
-    (sample, channel) rows; LAST, channels innermost. A tensor with one
-    channel or one voxel is in both (the same memory order)."""
-    return (t.is_contiguous() if layout == ROWS
-            else t.movedim(1, -1).is_contiguous())
-
-
-def layout_of(t):
-    """ROWS, LAST or None (neither); ROWS where both hold."""
-    return next((lay for lay in (ROWS, LAST) if in_layout(t, lay)), None)
-
-
-def _to_layout(t, layout):
-    """t in `layout`: itself, or a copy counted as `layout.copies`."""
-    if in_layout(t, layout):
+def _to_last(t):
+    """t (N, C, ...) channels-last dense: itself, or the copy of a
+    contiguous t, counted as `layout.copies`."""
+    last = t.movedim(1, -1)
+    if last.is_contiguous():
         return t
     count("layout.copies")
-    if layout == ROWS:
-        return t.contiguous()
-    return t.movedim(1, -1).contiguous().movedim(-1, 1)
+    return last.contiguous().movedim(-1, 1)
 
 
 def _check(name, *tensors):
     """The CUDA operands, x (the activation) last, checked for device,
-    dtype, shape and layout; an operand in the other dense layout than x's
-    is copied into x's (counted). Returns (operands, rows, S, channels):
-    channels 0 for ROWS, C for LAST."""
+    dtype, shape and strides, each channels-last (`_to_last`). Returns
+    (operands, N, S, C)."""
     x = tensors[-1]
     if x.device.type != "cuda" or any(t.device != x.device
                                       for t in tensors):
@@ -156,14 +137,13 @@ def _check(name, *tensors):
     if x.dim() < 3 or any(t.shape != x.shape for t in tensors):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}"
                          "; one (N, C, ...) shape for all")
-    if any(layout_of(t) is None for t in tensors):
-        raise ValueError(f"{name}: every tensor must be contiguous (N, C, "
-                         "...) rows or channels-last (N, ..., C) dense; "
-                         f"strides {[t.stride() for t in tensors]}")
-    lay = layout_of(x)
-    tensors = tuple(_to_layout(t, lay) for t in tensors)
+    if not all(t.is_contiguous() or t.movedim(1, -1).is_contiguous()
+               for t in tensors):
+        raise ValueError(f"{name}: every tensor must be channels-last (N, "
+                         "..., C) dense or contiguous (N, C, ...); strides "
+                         f"{[t.stride() for t in tensors]}")
     N, C = x.shape[:2]
-    return tensors, N * C, math.prod(x.shape[2:]), 0 if lay == ROWS else C
+    return tuple(map(_to_last, tensors)), N, math.prod(x.shape[2:]), C
 
 
 def _coeffs(name, x, dtype, *coeffs):
@@ -176,39 +156,26 @@ def _coeffs(name, x, dtype, *coeffs):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _sums_split(rows: int, S: int) -> tuple[int, int]:
-    """(chunk, chunks) of K3's stage 1 on rows: each row in `chunks` blocks
-    of `chunk` elements (a multiple of 8, so that 16-B vectors never
-    straddle two blocks)."""
-    chunks = max(1, min(-(-SUMS_BLOCKS // max(rows, 1)),
-                        -(-S // MIN_CHUNK)))
-    chunk = -(-max(S, 1) // chunks)
-    chunk = -(-chunk // 8) * 8
-    return chunk, -(-max(S, 1) // chunk)
-
-
-def _sums_split_last(N: int, C: int, S: int) -> tuple[int, int]:
-    """(chunk, chunks) of K3's stage 1 channels-last: each sample in
-    `chunks` blocks of `chunk` voxels."""
-    least = max(MIN_VOXELS, -(-MIN_CHUNK // C))
-    chunks = max(1, min(-(-SUMS_BLOCKS_LAST // max(N, 1)), S // least))
+def _k3_grid(N: int, C: int, S: int) -> tuple[int, int]:
+    """(chunk, chunks) of K3's stage 1: each sample in `chunks` blocks of
+    `chunk` voxels."""
+    least = max(K3_MIN_VOXELS, -(-K3_MIN_ELEMENTS // C))
+    chunks = max(1, min(-(-K3_BLOCKS // max(N, 1)), S // least))
     chunk = -(-max(S, 1) // chunks)
     return chunk, -(-max(S, 1) // chunk)
 
 
 def _sums_cuda(u, v):
-    ops, rows, S, channels = _check(
-        "chan_sums", *((u,) if v is None else (u, v)))
+    ops, N, S, C = _check("chan_sums", *((u,) if v is None else (u, v)))
     u, v = ops if v is not None else (ops[0], None)
     sdt = stats_dtype(u.dtype)
-    chunk, chunks = (_sums_split_last(rows // channels, channels, S)
-                     if channels else _sums_split(rows, S))
-    part = torch.empty((rows, chunks, 2), dtype=sdt, device=u.device)
-    out = torch.empty((2,) + tuple(u.shape[:2]), dtype=sdt, device=u.device)
+    chunk, chunks = _k3_grid(N, C, S)
+    part = torch.empty((N * C, chunks, 2), dtype=sdt, device=u.device)
+    out = torch.empty((2, N, C), dtype=sdt, device=u.device)
     kernels.launch("chan_sums", u.data_ptr(),
                    None if v is None else v.data_ptr(), part.data_ptr(),
-                   out.data_ptr(), _DTYPE_CODE[u.dtype], rows, S, chunk,
-                   chunks, channels)
+                   out.data_ptr(), _DTYPE_CODE[u.dtype], N, S, C, chunk,
+                   chunks)
     return out
 
 
@@ -237,11 +204,11 @@ def chan_affine(x: Tensor, a: Tensor, b: Tensor) -> Tensor:
     statistics type, the result in x's dtype."""
     if _on_cpu(x, a, b):
         return chan_affine_plain(x, a, b)
-    (x,), rows, S, channels = _check("chan_affine", x)
+    (x,), N, S, C = _check("chan_affine", x)
     _coeffs("chan_affine", x, stats_dtype(x.dtype), a, b)
     y = torch.empty_like(x)
     kernels.launch("chan_affine", x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                   y.data_ptr(), _DTYPE_CODE[x.dtype], rows, S, channels)
+                   y.data_ptr(), _DTYPE_CODE[x.dtype], N, S, C)
     return y
 
 
@@ -257,12 +224,12 @@ def chan_affine3(dy: Tensor, x: Tensor, P: Tensor, Q: Tensor,
     dtype, every operation rounded to x's dtype."""
     if _on_cpu(dy, x, P, Q, R):
         return chan_affine3_plain(dy, x, P, Q, R)
-    (dy, x), rows, S, channels = _check("chan_affine3", dy, x)
+    (dy, x), N, S, C = _check("chan_affine3", dy, x)
     _coeffs("chan_affine3", x, x.dtype, P, Q, R)
     dx = torch.empty_like(x)
     kernels.launch("chan_affine3", dy.data_ptr(), x.data_ptr(), P.data_ptr(),
                    Q.data_ptr(), R.data_ptr(), dx.data_ptr(),
-                   _DTYPE_CODE[x.dtype], rows, S, channels)
+                   _DTYPE_CODE[x.dtype], N, S, C)
     return dx
 
 

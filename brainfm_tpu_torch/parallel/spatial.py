@@ -34,9 +34,13 @@ from .mesh import axis_index, axis_size, local_slice
 
 
 def _all_gather(x, group):
+    """Every rank's x, in x's layout: a channels-last (NDHWC) x is sent as
+    its contiguous (N, D, H, W, C) view, so that no layout is converted."""
+    last = not x.is_contiguous() and x.movedim(1, -1).is_contiguous()
+    x = x.movedim(1, -1) if last else x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return parts
+    dist.all_gather(parts, x, group=group)
+    return [p.movedim(-1, 1) for p in parts] if last else parts
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -90,23 +94,26 @@ class _GatherSpace(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        # a fresh contiguous tensor, an NDHWC g's (N, D, H, W, C) view
+        last = not g.is_contiguous() and g.movedim(1, -1).is_contiguous()
+        v = (g.movedim(1, -1) if last else g.contiguous()).clone()
+        dist.all_reduce(v, group=ctx.group)
+        g = v.movedim(-1, 1) if last else v
         r = dist.get_rank(ctx.group)
-        return g.narrow(ctx.dim, r * ctx.m, ctx.m).contiguous(), None, None
+        return g.narrow(ctx.dim, r * ctx.m, ctx.m).clone(), None, None
 
 
 class _SliceSpace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n, r, dim):
-        ctx.shape, ctx.n, ctx.r, ctx.dim = x.shape, n, r, dim
+        ctx.n, ctx.r, ctx.dim = n, r, dim
         return local_slice(x, n, r, dim).clone()
 
     @staticmethod
     def backward(ctx, g):
-        out = g.new_zeros(ctx.shape)
-        local_slice(out, ctx.n, ctx.r, ctx.dim).copy_(g)
-        return out, None, None, None
+        zero = torch.zeros_like(g)   # in g's layout, as the concat is
+        return torch.cat([g if q == ctx.r else zero for q in range(ctx.n)],
+                         ctx.dim), None, None, None
 
 
 @dataclass

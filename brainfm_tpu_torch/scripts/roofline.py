@@ -7,18 +7,17 @@ TFLOP" of `scripts/profile_infer.py` and of `scripts/profile_train.py
 --cost`. One JSON line per probe, each with the card's name and power
 limit:
 
-- rates, each the median of REPS calls after WARMUP calls, a pair of
-  CUDA events around each (`utils/profiling.py::call_times`): the bf16
-  matmul at the root script's size (TF/s); the 3^3 bf16 conv3d at the
-  flagship's three widest-traffic shapes (TF/s), in the NCDHW layout the
-  port's model runs and in `channels_last_3d`; the
-  elementwise bf16 `x*1.0001+0.1` at 220^3 x 64 (GB/s, one read and one
-  write of each element); at 220^3 x 64 under bf16 autocast, GB/s over
-  one read of the bf16 input and one write of the output: the library's
-  `nn.GroupNorm(8)` then `leaky_relu` (autocast runs the norm in fp32 and
-  hands back fp32), and the port's GroupNorm path as the model runs it,
-  `ops/groupnorm.py::fused_group_norm` (K3 and K4 on the card, bf16 in
-  and out) then `leaky_relu`;
+- rates, each the median of REPS calls after WARMUP calls, a pair of CUDA
+  events around each (`utils/profiling.py::call_times`): the bf16 matmul
+  at the root script's size (TF/s); the 3^3 bf16 conv3d at the flagship's
+  three widest-traffic shapes (TF/s), in NCDHW and in `channels_last_3d`
+  (the model's layout on the card); the elementwise bf16 `x*1.0001+0.1` at
+  220^3 x 64 (GB/s, one read and one write of each element); at 220^3 x 64
+  under bf16 autocast, GB/s over one read of the bf16 input and one write
+  of the output: the library's `nn.GroupNorm(8)` then `leaky_relu`
+  (autocast runs the norm in fp32 and hands back fp32), and the port's
+  path as the model runs it, `ops/groupnorm.py::fused_group_norm` on the
+  channels-last tensor (K3, K4; bf16 in and out) then `leaky_relu`;
 - FLOP counts (`torch.utils.flop_counter.FlopCounterMode`: convolutions
   and matrix products, forward and backward, with any recompute): the
   220^3 L6 whole-volume forward of the bench's served model on the meta
@@ -158,9 +157,9 @@ def probes(dev):
         with torch.autocast(dev.type, dtype=torch.bfloat16):
             return F.leaky_relu(gn(x), 0.01)
 
-    def port_chain():
+    def port_chain(xl=x.contiguous(memory_format=torch.channels_last_3d)):
         with torch.autocast(dev.type, dtype=torch.bfloat16):
-            return F.leaky_relu(fused_group_norm(x, gn.weight, gn.bias,
+            return F.leaky_relu(fused_group_norm(xl, gn.weight, gn.bias,
                                                  GROUPS, gn.eps), 0.01)
 
     for name, chain in ((f"groupnorm{GROUPS}+leakyrelu", gn_chain),

@@ -9,9 +9,9 @@ Phases, one JSON line each:
   2. kernel  - each kernel against its plain PyTorch version on the card, at
                the generator path's, the serving path's and the bench's
                generator stage's shapes, edge cases included
-               (`kernel_cases`), and K3-K5 (csrc/groupnorm.cu) at the
-               flagship's decoder pair and served tensor in bf16 and fp32
-               (`gn_cases`); kernel (warm and cold L2),
+               (`kernel_cases`), and K3-K5 (csrc/groupnorm.cu, NDHWC) at
+               the flagship's decoder pair and served tensor in bf16 and
+               fp32 (`gn_cases`); kernel (warm and cold L2),
                plain and library times (CUDA events) beside the byte bound.
                K1 linear at C=12 is also timed on 4 flagship deformation
                draws (seeds 0-3).
@@ -254,7 +254,7 @@ BANK = (192, 192, 192)
 # multiply-add contraction, so any difference is a fault; 1e-5 on O(1)
 # values leaves room for nothing but last-bit rounding
 LINEAR_TOL = 1e-5
-# K3 (chan_sums) sums millions of elements a row in fp32 in another order
+# K3 (chan_sums) sums millions of elements a channel in fp32 in another order
 # than torch.sum: max error relative to the largest |sum|; K4 and K5 round
 # like their plain versions, operation for operation, and must be equal
 GN_SUMS_RTOL = 1e-5
@@ -818,32 +818,24 @@ def _gn_names(parts, kinds):
                  for part in parts for fn, suffix in kinds)
 
 
-GN_TRAIN_CASES = _gn_names(("pair enc", "pair z"),
-                           (("chan_sums", ""), ("chan_sums", " backward"),
-                            ("chan_affine", ""), ("chan_affine3", "")))
+# K3-K5 channels-last, as the network runs on the card; the served slab is
+# one rank's over MGPU_WORLD ranks (multigpu_reference), bf16 as served
 GN_SERVE_CASES = _gn_names(("serve",), (("chan_sums", ""),
                                         ("chan_affine", "")))
-# the same tensors channels-last (NDHWC, the layout the network runs in on
-# the card): the NDHWC kernels
-GN_NDHWC_CASES = (_gn_names(("pair enc ndhwc", "pair z ndhwc"),
-                            (("chan_sums", ""), ("chan_sums", " backward"),
-                             ("chan_affine", ""), ("chan_affine3", "")))
-                  + _gn_names(("serve ndhwc",), (("chan_sums", ""),
-                                                  ("chan_affine", ""))))
-# one rank's D slab of the served tensor over MGPU_WORLD ranks (the
-# multigpu_reference's sharded serving), bf16 as served
 GN_SLAB_CASES = ("chan_sums bf16 serve slab", "chan_affine bf16 serve slab")
+GN_CASES = (_gn_names(("pair enc", "pair z"),
+                      (("chan_sums", ""), ("chan_sums", " backward"),
+                       ("chan_affine", ""), ("chan_affine3", "")))
+            + GN_SERVE_CASES + GN_SLAB_CASES)
 
 
 def gn_cases(scfg, dev) -> list:
-    """K3-K5 at the flagship's shapes, bf16 and fp32: the decoder's
-    level-0 pair in the train step (S samples; enc GN_F_MAPS channels at
-    cfg.size, z twice the channels at half the extent: K3 forward and
-    backward, K4, K5) and the served SERVE_WIN x GN_F_MAPS tensor (K3, K4;
-    serving has no backward), and in bf16 one rank's D slab of it over
-    MGPU_WORLD ranks (the space-sharded served volume); the pair's and
-    the served tensors again channels-last (`ndhwc`, the NDHWC kernels).
-    The library call is the GroupNorm pass each takes part in, on the same
+    """K3-K5 at the flagship's shapes, channels-last, bf16 and fp32: the
+    decoder's level-0 pair in the train step (S samples; enc GN_F_MAPS
+    channels at cfg.size, z twice the channels at half the extent: K3
+    forward and backward, K4, K5), the served SERVE_WIN x GN_F_MAPS tensor
+    (K3, K4) and in bf16 one rank's D slab of it over MGPU_WORLD ranks. The
+    library call is the GroupNorm pass each takes part in, on the same
     tensor (8 groups): `F.group_norm` forward for K3 and K4, its backward
     through `torch.autograd.grad` for K3 on (dy, x) and K5."""
     g = torch.Generator(dev).manual_seed(2)
@@ -853,8 +845,6 @@ def gn_cases(scfg, dev) -> list:
               "serve": (1, GN_F_MAPS, *SERVE_WIN),
               "serve slab": (1, GN_F_MAPS, SERVE_WIN[0] // MGPU_WORLD,
                              *SERVE_WIN[1:])}
-    shapes |= {f"{k} ndhwc": shapes[k] for k in ("pair enc", "pair z",
-                                                  "serve")}
     cases = []
     for dname, dtype in GN_DTYPES:
         sdt = groupnorm.stats_dtype(dtype)
@@ -862,10 +852,8 @@ def gn_cases(scfg, dev) -> list:
             if part == "serve slab" and dname != "bf16":
                 continue
             N, C = shape[:2]
-            fmt = (torch.channels_last_3d if part.endswith("ndhwc")
-                   else torch.contiguous_format)
             x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(
-                dtype, memory_format=fmt)
+                dtype, memory_format=torch.channels_last_3d)
             w = torch.linspace(0.5, 1.5, C, device=dev, dtype=dtype)
             b = torch.linspace(-0.2, 0.2, C, device=dev, dtype=dtype)
             a2 = [torch.rand((N, C), generator=g, device=dev).to(sdt) + 0.5
@@ -886,7 +874,7 @@ def gn_cases(scfg, dev) -> list:
                 reps=GN_REPS, info=fwd))
             if not part.startswith("serve"):
                 dy = torch.randn(shape, generator=g, device=dev).to(
-                    dtype, memory_format=fmt)
+                    dtype, memory_format=torch.channels_last_3d)
                 PQR = [(torch.randn((N, C), generator=g, device=dev) * 0.1)
                        .to(dtype) for _ in range(3)]
                 held = {}
@@ -924,8 +912,7 @@ def gn_cases(scfg, dev) -> list:
                         dy, x, *c),
                     lib_bwd, 3 * nx + 3 * nc * es, exact=True, reps=GN_REPS,
                     info=bwd))
-    order = {n: i for i, n in enumerate(GN_TRAIN_CASES + GN_SERVE_CASES
-                                         + GN_SLAB_CASES + GN_NDHWC_CASES)}
+    order = {n: i for i, n in enumerate(GN_CASES)}
     return sorted(cases, key=lambda c: order[c.name])
 
 
@@ -960,7 +947,7 @@ ENTRY_CASES = ("warp_linear_f32 C=10 dry run", "warp_nearest_i32 dry run",
 PATH_CASES = {"serving_case": SERVING_CASES, "evaluate_case": EVALUATE_CASES,
               "numerics_case": NUMERICS_CASES, "bench_case": BENCH_CASES,
               "entry_case": ENTRY_CASES, "gn_serve_case": GN_SERVE_CASES,
-              "gn_slab_case": GN_SLAB_CASES, "gn_ndhwc_case": GN_NDHWC_CASES}
+              "gn_slab_case": GN_SLAB_CASES}
 
 
 def check_kernels(scfg, dev):
@@ -2950,8 +2937,8 @@ def mgpu_cfg():
     return process_args(cfg)
 
 
-def mgpu_batch(cfg, dev):
-    """A random fp64 train batch of one item, S=2, on `dev`."""
+def mgpu_batch(cfg, dev, dtype=torch.float64):
+    """A random train batch of one item, S=2, on `dev` in `dtype`."""
     B, S = 1, 2
     rng = np.random.default_rng(3)
     size = tuple(cfg.generator.size)
@@ -2963,18 +2950,18 @@ def mgpu_batch(cfg, dev):
                      "segmentation": np.eye(cfg.n_labels)[lab],
                      "distance": rng.uniform(-2.5, 2.5, (B, 1, *size, 4)),
                      "registration": rng.standard_normal((B, 1, *size, 3))}}
-    return {k: {kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()}
-            for k, v in b.items()}
+    return {k: {kk: torch.from_numpy(vv).to(dev, dtype)
+                for kk, vv in v.items()} for k, v in b.items()}
 
 
-def _mgpu_loss_grads(model, cfg, batch, mesh):
+def _mgpu_loss_grads(model, cfg, batch, mesh, amp=False):
     """The train step's loss and this rank's gradient share (summed over
     the world by the caller), or the whole without a mesh."""
     from brainfm_tpu_torch.parallel.mesh import axis_size
 
     _, w, fn = make_criterion(cfg)
     model.zero_grad(set_to_none=True)
-    total = weighted_total(batch_losses(model, cfg, fn, batch, amp=False,
+    total = weighted_total(batch_losses(model, cfg, fn, batch, amp=amp,
                                         mesh=mesh), w)
     scale = 1.0 if mesh is None else 1.0 / (axis_size(mesh, "data")
                                             * axis_size(mesh, "space"))
@@ -2985,9 +2972,9 @@ def _mgpu_loss_grads(model, cfg, batch, mesh):
 
 def _mgpu_unet(dev, mesh, rank):
     """Check 1: the space-sharded L6 step at fp64 against the same model
-    unsharded on the card (rank 0), with the kernels' launches of the
-    sharded step and the model's number of GroupNorms (each one K4 launch
-    in the forward, sharded or whole)."""
+    unsharded on the card (rank 0), with the sharded step's launches, its
+    `layout.copies` at fp64 (cuDNN's fp64 convolutions are NCDHW) and in
+    bf16, and the model's number of GroupNorms (one K4 launch each)."""
     cfg = mgpu_cfg()
     torch.manual_seed(0)
     _, model = build_model(cfg, device=dev)
@@ -2996,12 +2983,14 @@ def _mgpu_unet(dev, mesh, rank):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    loss, grads = _mgpu_loss_grads(model, cfg, batch, mesh)
+    with profiling.recording():
+        loss, grads = _mgpu_loss_grads(model, cfg, batch, mesh)
     for g in grads.values():
         torch.distributed.all_reduce(g)
     torch.cuda.synchronize()
     sharded_ms = (time.perf_counter() - t0) * 1e3
-    out = {"loss": loss, "step_ms": sharded_ms,
+    copies = {"fp64": profiling.COUNTS.get("layout.copies", 0)}
+    out = {"loss": loss, "step_ms": sharded_ms, "layout_copies": copies,
            "launches": dict(kernels.LAUNCHES),
            "group_norms": sum(isinstance(m, torch.nn.GroupNorm)
                               for m in model.modules())}
@@ -3019,6 +3008,10 @@ def _mgpu_unet(dev, mesh, rank):
                         / max(float(ref[k].norm()), 1e-300)) for k in keys}
         out["tensor_rel_l2_max"] = max(per.values())
         out["tensor_rel_l2_argmax"] = max(per, key=per.get)
+    with profiling.recording():
+        _mgpu_loss_grads(model.float(), cfg,
+                         mgpu_batch(cfg, dev, torch.float32), mesh, True)
+    copies["bf16"] = profiling.COUNTS.get("layout.copies", 0)
     return out
 
 
@@ -3081,8 +3074,9 @@ def _serve_compare(got, ref):
 
 def _mgpu_serve(dev, mesh, pth, rank):
     """Check 3: the slice's weights serving one procedural head over
-    space=2. In bf16 at SERVE_WIN (timed, peak memory per rank), held
-    beside rank 0 serving it alone and beside rank 0 serving the head
+    space=2. In bf16 at SERVE_WIN (the warm-up's `layout.copies`, then
+    timed, peak memory per rank), held beside rank 0 serving it alone and
+    beside rank 0 serving the head
     scaled by 1 + 2^-20 (the bf16 model's own noise floor); then at fp64
     at MGPU_EXACT_WIN against rank 0 alone, the gate."""
     def make(dtype, exact):
@@ -3098,14 +3092,16 @@ def _mgpu_serve(dev, mesh, pth, rank):
 
     inf = make(torch.bfloat16, False)
     vol = procedural_head(SERVE_WIN, (1.0, 1.0, 1.0), 21, dev)
-    inf.evaluate_image(vol, keep_feat=False)   # warm-up
+    with profiling.recording():
+        inf.evaluate_image(vol, keep_feat=False)   # warm-up
+    copies = profiling.COUNTS.get("layout.copies", 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     got = inf.evaluate_image(vol, keep_feat=False)
     torch.cuda.synchronize()
-    out = {"ms": (time.perf_counter() - t0) * 1e3,
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "layout_copies": copies,
            "launches": dict(kernels.LAUNCHES),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "shape": list(got["label"].shape),
@@ -3150,7 +3146,7 @@ def _mgpu_serve(dev, mesh, pth, rank):
 
 def _mgpu_slab_gn(dev, mesh, rank):
     """Check 4: this rank's D slab of one bf16 1 x GN_F_MAPS x SERVE_WIN
-    tensor (the same on every rank) through fused_group_norm with the
+    NDHWC tensor (the same on every rank) through fused_group_norm with the
     space group, against the unsharded function of the whole tensor,
     sliced: within one bf16 ulp, or GN_BF16_ATOL near 0 (the rule of
     tests/test_torch_parallel.py); and K3 on the slab against its plain
@@ -3159,11 +3155,11 @@ def _mgpu_slab_gn(dev, mesh, rank):
 
     g = torch.Generator(dev).manual_seed(4)
     x = (torch.randn((1, GN_F_MAPS, *SERVE_WIN), generator=g, device=dev)
-         + 0.5).to(torch.bfloat16)
+         + 0.5).to(torch.bfloat16, memory_format=torch.channels_last_3d)
     w = torch.linspace(0.5, 1.5, GN_F_MAPS, device=dev)
     b = torch.linspace(-0.2, 0.2, GN_F_MAPS, device=dev)
     n = axis_size(mesh, "space")
-    slab = local_slice(x, n, rank, 2).contiguous()
+    slab = local_slice(x, n, rank, 2).clone()   # dense, NDHWC
     want = local_slice(groupnorm.fused_group_norm(x, w, b, 8), n, rank, 2)
     del x
     got = groupnorm.fused_group_norm(slab, w, b, 8,
@@ -3252,7 +3248,10 @@ def check_multigpu_reference(dev, power, pth, tmp):
                        for c in ("unet", "synth", "serve"))
                 for k in kernels.LAUNCHES}
     u, sv = res[0]["unet"], res[0]["serve"]
-    bad = {}
+    copies = [{**r["unet"]["layout_copies"],
+               "serve": r["serve"]["layout_copies"]} for r in res]
+    bad = {} if not any(c["bf16"] or c["serve"] for c in copies) \
+        else {"layout_copies": copies}
     if not (u["loss_rel"] <= MGPU_LOSS_TOL and u["grad_rel_l2"]
             <= MGPU_GRAD_TOL and u["tensor_rel_l2_max"] <= MGPU_TENSOR_TOL):
         bad["unet"] = u
@@ -3307,6 +3306,7 @@ def check_multigpu_reference(dev, power, pth, tmp):
           "slab_gn": {"per_rank": [r["slab_gn"] for r in res],
                       "ulp_excess_tol": GN_BF16_ATOL,
                       "sums_rtol": GN_SUMS_RTOL},
+          "layout_copies_per_rank": copies,
           "fsdp": "with the CPU test: FSDP2 over gloo on CUDA segfaulted",
           "ranks_s": ranks_s, "launches": launches, "gpu": power})
     if bad:

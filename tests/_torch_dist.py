@@ -159,8 +159,8 @@ def world_sum(grads):
 
 def rank_parallel(rank, world, tmp):
     """halo_exchange forward and backward, gather_space / slice_space
-    backward, make_mesh's size error, a blur tower through
-    spatial_shard_conv_apply and the slab GroupNorm on space=2."""
+    backward (also on NDHWC slabs), make_mesh's size error, a blur tower
+    through spatial_shard_conv_apply and the slab GroupNorm on space=2."""
     import torch.nn.functional as F
 
     from brainfm_tpu_torch.parallel import (halo_exchange, make_mesh,
@@ -250,6 +250,46 @@ def rank_parallel(rank, world, tmp):
         tower, local_slice(vol, world, rank, 2), mesh, halo=2).detach()
     out["blur_input"], out["blur_w"] = vol, (w1, w2)
     out.update(_slab_group_norm(rank, world, mesh))
+    out.update(_exchanges_in_layout(rank, world, mesh))
+    return out
+
+
+def _exchanges_in_layout(rank, world, mesh):
+    """halo_exchange, gather_space and slice_space on an NDHWC (channels-
+    last) slab against the NCDHW slab of the same values, gradients
+    included: {cl_<exchange>: (largest difference of the outputs and the
+    gradients, whether the NDHWC output and gradient kept NDHWC)}."""
+    from brainfm_tpu_torch.parallel import halo_exchange
+    from brainfm_tpu_torch.parallel.mesh import local_slice
+    from brainfm_tpu_torch.parallel.spatial import (gather_space,
+                                                    slice_space, space_scope)
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 3, 4 * world, 5, 4, dtype=torch.float64, generator=g)
+    w = torch.randn(2, 3, 4 * world + 4, 5, 4, dtype=torch.float64,
+                    generator=g)
+    last = torch.channels_last_3d
+    fns = {"halo": lambda t: halo_exchange(t, 2, mesh.get_group("space")),
+           "gather": gather_space, "slice": slice_space}
+    out = {}
+    with space_scope(mesh):
+        for what, fn in fns.items():
+            src = x if what == "slice" else local_slice(x, world, rank, 2)
+            res = []
+            for fmt in (torch.contiguous_format, last):
+                leaf = src.clone(memory_format=fmt).requires_grad_()
+                y = fn(leaf)
+                wy = w[tuple(slice(0, n) for n in y.shape)]
+                # the gradient as the exchange's backward gives it (a
+                # leaf's .grad would take the leaf's strides)
+                gx, = torch.autograd.grad(
+                    (y * wy.contiguous(memory_format=fmt)).sum(), leaf)
+                res.append((y.detach(), gx))
+            (y0, g0), (y1, g1) = res
+            err = max(float((y0 - y1).abs().max()),
+                      float((g0 - g1).abs().max()))
+            kept = all(t.is_contiguous(memory_format=last) for t in (y1, g1))
+            out[f"cl_{what}"] = (err, kept)
     return out
 
 

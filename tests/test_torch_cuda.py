@@ -283,23 +283,20 @@ def test_wrappers_reject_bad_inputs(dev):
 # versions, operation for operation: expect equality.
 SUMS_RTOL = {torch.bfloat16: 1e-5, torch.float32: 1e-5, torch.float64: 1e-13}
 GN_DTYPES = [torch.bfloat16, torch.float32, torch.float64]
-# (N, C, spatial): 16-B rows (vector path), odd rows (scalar path), rows
-# split over many blocks, one channel, the 2-D UNet's NCHW; for the
-# channels-last kernels also two channels (one element a thread), 192 (a
-# tile of 24 vectors that does not divide the block) and 3072 (passes of
-# 256 vectors)
+# (N, C, spatial), channels-last: 16-B voxels, odd widths (one element a
+# thread), many voxel chunks, one channel, the 2-D UNet's NHWC, two, 192
+# (24 vectors, not dividing the block) and 3072 channels (passes of 256)
 GN_SHAPES = [(2, 16, (8, 8, 8)), (1, 5, (7, 9, 11)), (4, 3, (96, 80, 72)),
              (1, 1, (33, 32, 31)), (2, 24, (20, 24)), (1, 2, (30, 31, 29)),
              (2, 192, (9, 10, 11)), (1, 3072, (3, 4, 5))]
-# the kernels' two layouts: (sample, channel) rows and channels-last
-GN_LAYOUTS = ["rows", "last"]
 
 
-def _gn_input(shape, dtype, dev, seed, shift=0.5, layout="rows"):
+def _gn_input(shape, dtype, dev, seed, shift=0.5, last=True):
+    """Seeded values of `shape`, channels-last unless `last` is False."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     t = (torch.randn(shape, generator=g, dtype=torch.float64)
          + shift).to(dtype).to(dev)
-    return t if layout == "rows" else _last(t)
+    return _last(t) if last and t.dim() > 2 else t
 
 
 def _last(t):
@@ -319,13 +316,11 @@ def _assert_sums(got, u, v):
                 .all()), float(err.max())
 
 
-@pytest.mark.parametrize("layout", GN_LAYOUTS)
 @pytest.mark.parametrize("dtype", GN_DTYPES)
 @pytest.mark.parametrize("N,C,spatial", GN_SHAPES)
-def test_chan_sums_matches_plain(dev, N, C, spatial, dtype, layout):
-    u = _gn_input((N, C, *spatial), dtype, dev, 1, layout=layout)
-    v = _gn_input((N, C, *spatial), dtype, dev, 2, shift=-0.2,
-                  layout=layout)
+def test_chan_sums_matches_plain(dev, N, C, spatial, dtype):
+    u = _gn_input((N, C, *spatial), dtype, dev, 1)
+    v = _gn_input((N, C, *spatial), dtype, dev, 2, shift=-0.2)
     for vv in (None, v):
         before = kernels.LAUNCHES["chan_sums"]
         got = groupnorm.chan_sums(u, vv)
@@ -335,13 +330,11 @@ def test_chan_sums_matches_plain(dev, N, C, spatial, dtype, layout):
         assert torch.equal(got, groupnorm.chan_sums(u, vv))
 
 
-@pytest.mark.parametrize("layout", GN_LAYOUTS)
 @pytest.mark.parametrize("dtype", GN_DTYPES)
 @pytest.mark.parametrize("N,C,spatial", GN_SHAPES)
-def test_chan_affines_match_plain_exactly(dev, N, C, spatial, dtype, layout):
-    x = _gn_input((N, C, *spatial), dtype, dev, 3, layout=layout)
-    dy = _gn_input((N, C, *spatial), dtype, dev, 4, shift=0.0,
-                   layout=layout)
+def test_chan_affines_match_plain_exactly(dev, N, C, spatial, dtype):
+    x = _gn_input((N, C, *spatial), dtype, dev, 3)
+    dy = _gn_input((N, C, *spatial), dtype, dev, 4, shift=0.0)
     sdt = groupnorm.stats_dtype(dtype)
     a = _gn_input((N, C), sdt, dev, 5)
     b = _gn_input((N, C), sdt, dev, 6)
@@ -361,18 +354,14 @@ def _offset_last(t, offset=1):
     return _offset_view(t.movedim(1, -1).contiguous()).movedim(-1, 1)
 
 
-@pytest.mark.parametrize("layout", GN_LAYOUTS)
 @pytest.mark.parametrize("fn", ["sums", "affine", "affine3"])
-def test_chan_kernels_on_misaligned_views(dev, fn, layout):
-    """Rows (channels-last: voxels) of 8 bf16 elements (16 B) starting one
-    element past a 16-B boundary take the one-element path."""
-    shape = (2, 4, 8, 4, 4) if layout == "rows" else (2, 8, 4, 4, 4)
-    off = _offset_view if layout == "rows" else _offset_last
-    x = off(_gn_input(shape, torch.bfloat16, dev, 8))
-    dy = off(_gn_input(shape, torch.bfloat16, dev, 9))
-    C = shape[1]
-    assert groupnorm.layout_of(x) == {"rows": groupnorm.ROWS,
-                                      "last": groupnorm.LAST}[layout]
+def test_chan_kernels_on_misaligned_views(dev, fn):
+    """Voxels of 8 bf16 channels (16 B) starting one element past a 16-B
+    boundary take the one-element path."""
+    shape, C = (2, 8, 4, 4, 4), 8
+    x = _offset_last(_gn_input(shape, torch.bfloat16, dev, 8))
+    dy = _offset_last(_gn_input(shape, torch.bfloat16, dev, 9))
+    assert x.movedim(1, -1).is_contiguous() and x.data_ptr() % 16
     if fn == "sums":
         _assert_sums(groupnorm.chan_sums(dy, x), dy, x)
     elif fn == "affine":
@@ -387,48 +376,57 @@ def test_chan_kernels_on_misaligned_views(dev, fn, layout):
 
 
 def test_chan_kernels_refuse_other_strides(dev):
-    """The two dense layouts are taken (channels-last since the NDHWC
-    kernels); a sliced view, half precision, coefficients of another dtype
-    and operands on two devices are refused."""
-    x = _gn_input((2, 8, 4, 4, 4), torch.float32, dev, 1)
+    """Channels-last operands are taken; a sliced view, half precision,
+    coefficients of another dtype and operands on two devices are
+    refused."""
+    cl = _gn_input((2, 8, 4, 4, 4), torch.float32, dev, 1)
     a = torch.ones(2, 8, device=dev)
-    cl = x.to(memory_format=torch.channels_last_3d)
     _assert_sums(groupnorm.chan_sums(cl), cl, None)
     assert torch.equal(groupnorm.chan_affine(cl, a, a),
-                       groupnorm.chan_affine_plain(x, a, a))
+                       groupnorm.chan_affine_plain(cl, a, a))
+    x = cl.contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         groupnorm.chan_affine(x[:, :, ::2], a, a)
     with pytest.raises(ValueError, match="contiguous"):
         groupnorm.chan_sums(cl[:, :, 1:])
     with pytest.raises(TypeError):
-        groupnorm.chan_sums(x.half())
+        groupnorm.chan_sums(cl.half())
     with pytest.raises(ValueError):
         groupnorm.chan_affine(x, a.double(), a.double())
     with pytest.raises(ValueError):
         groupnorm.chan_affine(cl, a.double(), a.double())
     with pytest.raises(ValueError):
-        groupnorm.chan_sums(x, x.cpu())
+        groupnorm.chan_sums(cl, cl.cpu())
 
 
-@pytest.mark.parametrize("fn", ["sums", "affine3"])
-def test_chan_kernels_copy_mixed_operands_once(dev, fn):
-    """dy in the other layout than x: dy is copied into x's, the result is
-    the plain version's, and the copy is counted as `layout.copies`."""
+# (kernel, which operands arrive contiguous (N, C, ...), i.e. NCDHW, and
+# not channels-last), the activation x last
+GN_NCDHW = ([("sums", nc) for nc in ((1,), (1, 0), (0, 1), (1, 1))]
+            + [("affine", (1,))]
+            + [("affine3", nc) for nc in ((1, 0), (0, 1), (1, 1))])
+
+
+@pytest.mark.parametrize("fn,nc", GN_NCDHW)
+def test_chan_kernels_copy_mixed_operands_once(dev, fn, nc):
+    """NCDHW operands, as from a caller outside the network: each is
+    copied once into channels-last (one `layout.copies` an operand), the
+    result is the plain version's and the output channels-last."""
     from brainfm_tpu_torch.utils import profiling
 
-    x = _last(_gn_input((2, 16, 6, 5, 4), torch.bfloat16, dev, 1))
-    dy = _gn_input((2, 16, 6, 5, 4), torch.bfloat16, dev, 2)
-    P, Q, R = (_gn_input((2, 16), torch.bfloat16, dev, s)
-               for s in (3, 4, 5))
+    ops = [_gn_input((2, 16, 6, 5, 4), torch.bfloat16, dev, s, last=not c)
+           for s, c in enumerate(nc, 1)]
+    sdt = torch.float32 if fn == "affine" else torch.bfloat16
+    cs = [_gn_input((2, 16), sdt, dev, s)
+          for s in range({"sums": 0, "affine": 2, "affine3": 3}[fn])]
     with profiling.recording():
-        if fn == "sums":
-            _assert_sums(groupnorm.chan_sums(dy, x), dy, x)
-        else:
-            dx = groupnorm.chan_affine3(dy, x, P, Q, R)
-            assert dx.stride() == x.stride()
-            assert torch.equal(dx, groupnorm.chan_affine3_plain(dy, x, P, Q,
-                                                                R))
-    assert profiling.COUNTS.get("layout.copies") == 1
+        got = getattr(groupnorm, f"chan_{fn}")(*ops, *cs)
+    assert profiling.COUNTS.get("layout.copies", 0) == sum(nc)
+    if fn == "sums":
+        _assert_sums(got, *ops, *[None] * (2 - len(ops)))
+    else:
+        assert got.movedim(1, -1).is_contiguous() and not got.is_contiguous()
+        assert torch.equal(got, getattr(groupnorm, f"chan_{fn}_plain")(
+            *ops, *cs))
 
 
 def _rel(a, b):
@@ -503,7 +501,9 @@ def test_phase_pair_conv_and_unet_on_the_card_match_the_cpu(dev):
 
 
 # The 3-D network in NDHWC on the card (models/build.py::_model_input)
-# against the same network in NCDHW there, a flagship-config step at a
+# against the same network given an NCDHW input there (the first
+# convolution runs NCDHW, and each GroupNorm kernel copies an NCDHW
+# operand into channels-last), a flagship-config step at a
 # small crop, in fp32 (TF32 off) and under bf16 autocast. The losses agree
 # within BF16_LOSS_REL and the fp32 gradients within BF16_GRAD_REL (global
 # relative L2), the bf16 limits of tests/test_torch_groupnorm.py

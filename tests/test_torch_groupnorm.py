@@ -570,8 +570,8 @@ def test_channels_last_gives_the_ncdhw_values_and_gradients(case):
 @pytest.mark.parametrize("where", ["card", "cpu", "space scope", "2-d"])
 def test_model_input_keeps_the_cards_channels_last_strides(where):
     """The joiners' (N, D, H, W, C) input: on the card (a meta tensor takes
-    that branch) the permute's NDHWC strides, no copy; on the CPU, in a
-    space scope and for the 2-D UNet plain NCDHW / NCHW strides."""
+    that branch), in a space scope too, the permute's NDHWC strides, no
+    copy; on the CPU and for the 2-D UNet plain NCDHW / NCHW strides."""
     from brainfm_tpu_torch.models.build import _model_input
     from brainfm_tpu_torch.parallel.spatial import use_scope
 
@@ -581,7 +581,7 @@ def test_model_input_keeps_the_cards_channels_last_strides(where):
     with use_scope(object() if where == "space scope" else None):
         got = _model_input(x)
     assert got.shape == x.movedim(-1, 1).shape
-    if where == "card":
+    if where in ("card", "space scope"):
         assert got.stride() == x.movedim(-1, 1).stride()
         assert t3.channels_last(got)
     else:

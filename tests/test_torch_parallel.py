@@ -1,7 +1,7 @@
 """The port's multi-GPU layer (brainfm_tpu_torch/parallel) on the CPU:
 fsdp_spec against the JAX package's rule, make_mesh's checks, and on two
 spawned gloo ranks (space=2) the halo exchange forward and backward,
-gather_space / slice_space, a blur tower through
+gather_space / slice_space (NDHWC slabs kept NDHWC), a blur tower through
 spatial_shard_conv_apply against the JAX package's on a 2-device JAX mesh
 at fp64, and the space-sharded GroupNorm (`fused_group_norm` with the
 space group) against the JAX package's `_fused_groupnorm` of the whole
@@ -96,6 +96,16 @@ def test_exchanges_forward_and_backward(ranks, what):
     replicate gives every rank rank 0's tensors and weights."""
     for r in ranks:
         assert r[what] <= TOL, (what, r[what])
+
+
+@pytest.mark.parametrize("what", ["halo", "gather", "slice"])
+def test_exchanges_keep_a_channels_last_slab(ranks, what):
+    """halo_exchange, gather_space and slice_space on an NDHWC slab (the
+    card's layout, a space scope's included): the output and the gradient
+    stay NDHWC, with the NCDHW slab's values and gradients."""
+    for r in ranks:
+        err, kept = r[f"cl_{what}"]
+        assert kept and err <= TOL, (what, err, kept)
 
 
 def test_blur_tower_matches_jax_spatial_shard_conv_apply(ranks):
