@@ -45,6 +45,10 @@ FUNCTIONS = {
     "chan_affine": ("groupnorm", [_P, _P, _P, _P, _I, _LL, _LL, _I, _P]),
     "chan_affine3": ("groupnorm", [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I,
                                    _P]),
+    "seg_loss_fwd": ("segloss", [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _LL,
+                                 _LL, _LL, _I, _P]),
+    "seg_loss_bwd": ("segloss", [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I,
+                                 _LL, _LL, _LL, _I, _P]),
 }
 SOURCES = sorted({src for src, _ in FUNCTIONS.values()})
 

@@ -437,12 +437,29 @@ def apply_processors(outputs: dict, cfg) -> dict:
     return out
 
 
-def process_outputs(model, outputs: dict, cfg) -> dict:
+def process_outputs(model, outputs: dict, cfg, for_loss: bool = False
+                    ) -> dict:
     """apply_processors on `model`'s outputs; a TwoStage model's
-    'pathology' is already stage 0's sigmoid and is kept as it is."""
+    'pathology' is already stage 0's sigmoid and is kept as it is.
+
+    `for_loss` readies them for the criterion (models/criterion.py): the
+    floating outputs are lifted to at least fp32 first, but for the
+    segmentation head's, which goes on unprocessed, in its own dtype, as
+    'segmentation_logits': the criterion's segmentation losses take the
+    softmax themselves (ops/segloss.py)."""
+    logits = None
+    if for_loss:
+        if "segmentation" in cfg.tasks:
+            logits = outputs.get("segmentation")
+        outputs = {k: ([_at_least_fp32(f) for f in v] if isinstance(v, list)
+                       else _at_least_fp32(v))
+                   for k, v in outputs.items()
+                   if k != "segmentation" or logits is None}
     out = apply_processors(outputs, cfg)
     if isinstance(model, TwoStage) and "pathology" in outputs:
         out["pathology"] = outputs["pathology"]
+    if logits is not None:
+        out["segmentation_logits"] = logits
     return out
 
 

@@ -9,6 +9,13 @@ Conventions (the port's Joiner output, channels last): outputs[name] is
 (S, D, H, W, C); targets[name] is (1, D, H, W, C) and broadcasts; scalars
 (age) are (S,) / (1,). Clips follow `torch.clamp`, whose gradient at an
 exact tie with the bound passes whole where `jnp.clip` splits it.
+
+The segmentation losses take either the processed probabilities
+(outputs["segmentation"]) or the head's logits before the softmax
+(outputs["segmentation_logits"], as `models/build.py::process_outputs`
+leaves them for the train step), from which `ops/segloss.py::seg_losses`
+computes both losses at once: the eager chain on the CPU, two hand-written
+passes on the card.
 """
 
 from __future__ import annotations
@@ -20,9 +27,9 @@ import torch
 
 from .losses import (gaussian_loss, gradient_loss, hessian_loss, l1_loss,
                      l2_loss, laplace_loss, smoothness_loss)
+from ..ops.segloss import cross_entropy as ce, dice as _dice, seg_losses
 from ..utils.profiling import count
 
-_SPATIAL = (1, 2, 3)  # reduce dims for (S, D, H, W, C) per-sample dice sums
 _IMAGES = ("T1", "T2", "FLAIR", "CT")
 # losses of one target each, left out for a subject without that target
 _TARGET_OF = {"seg_ce": "segmentation", "seg_dice": "segmentation",
@@ -46,14 +53,6 @@ def _seg_weights(n_labels: int, label_list_with_csf, relative_weight_lesions: fl
     return w / w.sum()
 
 
-def _dice(p, t, weights=None):
-    """sum over (S, labels) of (1 - 2 |p t| / |p + t|)."""
-    inter = torch.sum(p * t, dim=_SPATIAL)
-    union = torch.sum(p + t, dim=_SPATIAL).clamp(min=1e-5)
-    d = 1.0 - 2.0 * inter / union
-    return torch.sum(d if weights is None else weights * d)
-
-
 def make_criterion(cfg) -> tuple[list, dict, Callable]:
     """Build (loss_names, weight_dict, loss_fn) from config: tasks,
     n_labels, label_list_segmentation_with_csf, relative_weight_lesions,
@@ -66,6 +65,13 @@ def make_criterion(cfg) -> tuple[list, dict, Callable]:
     w_seg = torch.from_numpy(_seg_weights(
         n_labels, cfg.label_list_segmentation_with_csf,
         float(cfg.get("relative_weight_lesions", 1.0))))
+    w_seg_on = {}
+
+    def w_seg_to(device):
+        """w_seg on `device`, copied there at its first use."""
+        if device not in w_seg_on:
+            w_seg_on[device] = _to(w_seg, device)
+        return w_seg_on[device]
 
     if uncertainty == "gaussian":
         reg_loss = gaussian_loss
@@ -128,14 +134,11 @@ def make_criterion(cfg) -> tuple[list, dict, Callable]:
             return reg_loss(out, sigma, tgt)
         return l1_loss(out, tgt, weights)
 
-    def ce(p, t, w=1.0):
-        return torch.mean(-torch.sum(torch.log(p.clamp(min=1e-5)) * w * t,
-                                     dim=-1))
-
     def loss_fn(outputs, targets, samples):
         S = next((v.shape[0] for v in outputs.values()
                   if torch.is_tensor(v) and v.dim() >= 1), None)
         losses = {}
+        logits, seg = outputs.get("segmentation_logits"), None
         for name in loss_names:
             if name in _TARGET_OF and _TARGET_OF[name] not in targets:
                 # a subject without this target (the dataset layout's
@@ -163,16 +166,19 @@ def make_criterion(cfg) -> tuple[list, dict, Callable]:
             elif name == "SR_grad":
                 losses["loss_SR_grad"] = gradient_loss(outputs["high_res_residual"],
                                                        samples["high_res_residual"])
-            elif name == "seg_ce":
-                p = outputs["segmentation"]
-                losses["loss_seg_ce"] = ce(p, targets["segmentation"],
-                                           _to(w_seg, p.device))
-            elif name == "seg_dice":
-                p = outputs["segmentation"]
-                # sum over (S, labels) then / S: the reference's sample
-                # averaging
-                losses["loss_seg_dice"] = _dice(p, targets["segmentation"],
-                                                _to(w_seg, p.device)) / S
+            elif name in ("seg_ce", "seg_dice") and logits is not None:
+                if seg is None:   # both losses at once
+                    seg = dict(zip(("seg_ce", "seg_dice"), seg_losses(
+                        logits, targets["segmentation"],
+                        w_seg_to(logits.device))))
+                losses[f"loss_{name}"] = seg[name]
+            elif name in ("seg_ce", "seg_dice"):
+                p, t = outputs["segmentation"], targets["segmentation"]
+                w = w_seg_to(p.device)
+                # dice: sum over (S, labels) then / S, the reference's
+                # sample averaging
+                losses[f"loss_{name}"] = (ce(p, t, w) if name == "seg_ce"
+                                          else _dice(p, t, w) / S)
             elif name in ("pathol_ce", "pathol_dice"):
                 if "pathology" not in outputs or "pathology" not in targets:
                     continue

@@ -12,8 +12,10 @@ have no counterpart: a step is one backward (or one per microbatch) and an
 in-place `optimizer.step()`. Mixed precision is `torch.autocast(bfloat16)`
 around the model only; parameters, gradients and optimizer state stay in
 the parameters' dtype, the heads' outputs are lifted to fp32 before the
-processors and the criterion, and bf16 needs no gradient scaler. (The JAX
-package's bf16 path computes the processors and the losses in bf16.)
+processors and the criterion (`process_outputs(for_loss=True)`; the
+segmentation logits go on in their own dtype), and bf16 needs no gradient
+scaler. (The JAX package's bf16 path computes the processors and the
+losses in bf16.)
 
 With a mesh (parallel/mesh.py) each rank holds its data rank's items.
 With a 'space' axis the model runs on this rank's D slab in a
@@ -194,9 +196,7 @@ def batch_losses(model, cfg, loss_fn, batch, amp: bool, critic=None,
         out = {k: v for k, v in out.items() if not k.startswith("feat")}
     if sc is not None:
         out = gather_outputs(out, sc)
-    if amp:
-        out = {k: _each(v, lambda t: t.float()) for k, v in out.items()}
-    out = process_outputs(model, out, cfg)
+    out = process_outputs(model, out, cfg, for_loss=True)
 
     def item(a, b):
         return a.reshape(B, S, *a.shape[1:])[b]

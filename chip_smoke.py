@@ -11,7 +11,9 @@ Phases, one JSON line each:
                generator stage's shapes, edge cases included
                (`kernel_cases`), and K3-K5 (csrc/groupnorm.cu, NDHWC) at
                the flagship's decoder pair and served tensor in bf16 and
-               fp32 (`gn_cases`); kernel (warm and cold L2),
+               fp32 (`gn_cases`), and the segmentation losses' two
+               passes (csrc/segloss.cu) at the flagship's and sep's heads
+               (`seg_cases`); kernel (warm and cold L2),
                plain and library times (CUDA events) beside the byte bound.
                K1 linear at C=12 is also timed on 4 flagship deformation
                draws (seeds 0-3).
@@ -222,7 +224,7 @@ from brainfm_tpu_torch.ops.ode import odeint_adjoint
 from brainfm_tpu_torch.ops.pushpull import grid_grad, grid_pull, grid_push
 from brainfm_tpu_torch.ops.resize import resize_spline, restrict_spline
 from brainfm_tpu_torch.ops.interp import nearest3d, trilinear3d
-from brainfm_tpu_torch.ops import groupnorm
+from brainfm_tpu_torch.ops import groupnorm, segloss
 from brainfm_tpu_torch.ops.lut import lut_apply, lut_apply_plain
 from brainfm_tpu_torch.ops.warp import warp_labels, warp_volume
 from brainfm_tpu_torch.synth import (Draws, LABELS_EXTRACEREBRAL, SubjectBank,
@@ -268,6 +270,16 @@ GN_BF16_ATOL = 1e-5
 GN_F_MAPS = 64
 GN_DTYPES = (("bf16", torch.bfloat16), ("f32", torch.float32))
 GN_REPS = 5
+# the segmentation losses' passes (csrc/segloss.cu) on the bf16 logits as
+# they lie in the head tensor: (samples, head width, channel offset) of the
+# flagship (joint) and of sep's normal head, 56 labels at cfg.size. The
+# losses and each value of the bf16 gradient within the yardstick of
+# ops/segloss.py (`loss_excess`, `grad_excess`), which the card's tests
+# hold the kernels to as well
+SEG_HEADS = {"joint": (4, 72, 5), "sep": (2, 64, 4)}
+SEG_LABELS = 56
+SEG_CASES = tuple(f"seg_loss_{p} bf16 {h}" for h in SEG_HEADS
+                  for p in ("fwd", "bwd"))
 # the groupnorm_reference phase: fp64 on the card against the CPU, the
 # whole gradient's relative L2 (cuDNN and K3 sum in other orders)
 GN_REF_SIZES = (32, 33)
@@ -413,7 +425,9 @@ SOURCES = {"warp_linear_f32": "brainfm_tpu_torch/csrc/warp.cu",
            "lut_gather_f32": "brainfm_tpu_torch/csrc/lut.cu",
            "chan_sums": "brainfm_tpu_torch/csrc/groupnorm.cu",
            "chan_affine": "brainfm_tpu_torch/csrc/groupnorm.cu",
-           "chan_affine3": "brainfm_tpu_torch/csrc/groupnorm.cu"}
+           "chan_affine3": "brainfm_tpu_torch/csrc/groupnorm.cu",
+           "seg_loss_fwd": "brainfm_tpu_torch/csrc/segloss.cu",
+           "seg_loss_bwd": "brainfm_tpu_torch/csrc/segloss.cu"}
 REPLACES = {"warp_linear_f32": "brainfm_tpu/ops/pallas_warp_blocks.py:300",
             "warp_nearest_i32": "brainfm_tpu/ops/pallas_warp_blocks.py:300",
             "lut_gather_i32": "brainfm_tpu/ops/pallas_lut.py:53",
@@ -422,11 +436,18 @@ REPLACES = {"warp_linear_f32": "brainfm_tpu/ops/pallas_warp_blocks.py:300",
             # _fgn_stats, the apply of _fgn_fwd, the combine of _fgn_bwd
             "chan_sums": "brainfm_tpu/models/unet3d.py:304",
             "chan_affine": "brainfm_tpu/models/unet3d.py:341",
-            "chan_affine3": "brainfm_tpu/models/unet3d.py:383"}
+            "chan_affine3": "brainfm_tpu/models/unet3d.py:383",
+            # no Pallas kernel: the JAX package leaves the criterion's
+            # segmentation losses to XLA; these replace the port's eager
+            # chain (ops/segloss.py seg_losses_plain)
+            "seg_loss_fwd": "brainfm_tpu/models/criterion.py",
+            "seg_loss_bwd": "brainfm_tpu/models/criterion.py"}
 # K3 and K4 run in every forward of the model, K5 only in a backward pass
 GN_FORWARD = ("chan_sums", "chan_affine")
 GN_BACKWARD = ("chan_affine3",)
 GN_KERNELS = GN_FORWARD + GN_BACKWARD
+# the segmentation losses' two passes run only in a training step
+SEG_KERNELS = ("seg_loss_fwd", "seg_loss_bwd")
 
 
 def emit(obj):
@@ -563,6 +584,7 @@ class Case(NamedTuple):
     nbytes: int             # the bound: bytes the function must move
     exact: bool
     rtol: float = 0.0       # > 0: max error relative to the largest |want|
+    close: Callable | None = None   # (got, want) -> excess, <= 0 agrees
     reps: int = 20          # calls per timing
     info: dict | None = None   # shape, dtype, library call: for the record
 
@@ -581,9 +603,12 @@ def run_case(case):
     torch.cuda.synchronize()
     t = torch.promote_types(want.dtype, torch.float32)
     err = float((got.to(t) - want.to(t)).abs().max())
-    rel = None
+    rel = excess = None
     if case.exact:
         ok = err == 0
+    elif case.close is not None:
+        excess = case.close(got, want)
+        ok = excess <= 0
     elif case.rtol:
         rel = err / max(float(want.to(t).abs().max()), 1e-30)
         ok = rel <= case.rtol
@@ -594,6 +619,7 @@ def run_case(case):
     rec = {"phase": "kernel", "case": case.name, **(case.info or {}),
            "max_abs_err": err,
            **({} if rel is None else {"max_rel_err": rel}),
+           **({} if excess is None else {"excess": excess}),
            "ms": time_ms(case.kernel, n),
            "ms_cold": time_ms(case.kernel, n, cold=True),
            "plain_ms": time_ms(case.plain, n),
@@ -604,7 +630,9 @@ def run_case(case):
     emit(rec)
     if not ok:
         raise AssertionError(f"{case.name}: kernel disagrees with its plain "
-                             f"version, max abs err {err}")
+                             f"version, max abs err {err}"
+                             + ("" if excess is None
+                                else f", excess over its bound {excess}"))
     return rec
 
 
@@ -810,7 +838,7 @@ def kernel_cases(scfg, dev) -> list:
     cases.append(lut_case("lut_gather_f32 K=256 C=4 dry run",
                           torch.rand((256, 4), generator=g, device=dev) * 200,
                           dbank))
-    return cases + gn_cases(scfg, dev)
+    return cases + gn_cases(scfg, dev) + seg_cases(scfg, dev)
 
 
 def _gn_names(parts, kinds):
@@ -914,6 +942,63 @@ def gn_cases(scfg, dev) -> list:
                     info=bwd))
     order = {n: i for i, n in enumerate(GN_CASES)}
     return sorted(cases, key=lambda c: order[c.name])
+
+
+def seg_cases(scfg, dev) -> list:
+    """The segmentation losses' two passes at SEG_HEADS' shapes, bf16
+    logits read in place from an NDHWC head tensor, a one-hot fp32 target:
+    pass 1 (the losses) and pass 2 (dL/dlogits) against the eager chain
+    (`seg_losses_plain`, which the port runs on the CPU): its forward, and
+    its forward and backward (`torch.autograd.grad`, no graph kept between
+    calls) for pass 2; that chain is also the library column, which the
+    card's path no longer calls. The bound is the bytes the passes must
+    move: the logits' values (not the sectors of the head tensor they
+    share), the target, and pass 2's gradient."""
+    g = torch.Generator(dev).manual_seed(3)
+    size = tuple(scfg.size)
+    V, L = math.prod(size), SEG_LABELS
+    cases = []
+    for name, (S, width, off) in SEG_HEADS.items():
+        head = torch.randn((S, width, *size), generator=g, device=dev).mul_(
+            3).to(torch.bfloat16, memory_format=torch.channels_last_3d)
+        x = head.narrow(1, off, L).movedim(1, -1).detach().requires_grad_()
+        lab = torch.randint(0, L, size, generator=g, device=dev)
+        t = F.one_hot(lab, L).float()[None]
+        w = torch.rand(L, generator=g, device=dev) + 0.5
+        w = w / w.sum()
+        gl = (torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev))
+        held = {}
+
+        def plain_fwd(x=x, t=t, w=w):
+            with torch.no_grad():
+                return torch.stack(segloss.seg_losses_plain(x, t, w))
+
+        def plain_bwd(x=x, t=t, w=w, gl=gl):
+            return torch.autograd.grad(segloss.seg_losses_plain(x, t, w), x,
+                                       gl)[0]
+
+        def kernel_bwd(x=x, t=t, w=w, gl=gl, held=held):
+            if "kernel" not in held:
+                held["kernel"] = segloss.seg_losses(x, t, w)
+            return torch.autograd.grad(held["kernel"], x, gl,
+                                       retain_graph=True)[0]
+
+        info = {"shape": [S, *size, L], "head_width": width,
+                "channel_offset": off, "dtype": "bf16",
+                "library": "the eager chain (seg_losses_plain)"}
+        nx, nt = S * V * L * 2, V * L * 4
+        cases.append(Case(
+            f"seg_loss_fwd bf16 {name}", "seg_loss_fwd",
+            lambda x=x, t=t, w=w: torch.stack(segloss.seg_losses(
+                x.detach(), t, w)), plain_fwd, plain_fwd, nx + nt,
+            exact=False, close=segloss.loss_excess, reps=GN_REPS, info=info))
+        cases.append(Case(
+            f"seg_loss_bwd bf16 {name}", "seg_loss_bwd", kernel_bwd,
+            plain_bwd, plain_bwd, 2 * nx + nt, exact=False,
+            close=segloss.grad_excess, reps=GN_REPS,
+            info={**info, "library": "the eager chain's forward and "
+                                     "backward (torch.autograd.grad)"}))
+    return cases
 
 
 def atlas_grid(dev):
@@ -2221,10 +2306,11 @@ def check_variants_reference(dev):
 def missed(launches, backward=True, names=None):
     """The C functions of `names` (default: every kernel) that a path
     launched no time; a path without a backward pass is not asked for K5
-    (chan_affine3), which runs only there."""
+    (chan_affine3) or the segmentation losses' passes, which run only in a
+    training step."""
     names = launches if names is None else names
     return [k for k in names if launches[k] < 1
-            and (backward or k not in GN_BACKWARD)]
+            and (backward or k not in GN_BACKWARD + SEG_KERNELS)]
 
 
 def _kernel_check(launches, what):

@@ -622,3 +622,174 @@ def test_unet_on_the_card_converts_no_layout(dev):
     ops, copies = _layout_kernels(serve, dev)
     assert copies == 0
     assert all(_one_channel_conv(op) for op in ops), ops
+
+
+# ---- the segmentation losses (csrc/segloss.cu) against their plain
+# version on the card: the eager chain (ops/segloss.py seg_losses_plain),
+# within the yardstick that module states (`loss_excess`, `grad_excess`).
+SEG_SHAPE = (12, 10, 14)
+
+
+def _seg_inputs(dev, dtype, S, width, shape=SEG_SHAPE, L=56, soft=False,
+                seed=0):
+    """(leaf, logits, target, w): the logits a view at channel offset 5 of
+    a `width`-wide NDHWC head tensor (the leaf), or dense for width None;
+    a one-hot (or soft) fp32 target with one label absent from it and from
+    the logits; lesion-weighted labels."""
+    g = torch.Generator(dev).manual_seed(seed)
+    if width is None:
+        leaf = torch.randn((S, *shape, L), generator=g, device=dev)
+    else:
+        leaf = torch.randn((S, width, *shape), generator=g, device=dev)
+    leaf = (leaf * 3).to(dtype)
+    if width is not None:
+        leaf = leaf.contiguous(memory_format=torch.channels_last_3d)
+    logits = (leaf if width is None
+              else leaf.narrow(1, 5, L).movedim(1, -1))
+    logits[..., L - 1] = -60.0       # the absent label: its union clamps
+    leaf.requires_grad_(True)
+    logits = (leaf if width is None
+              else leaf.narrow(1, 5, L).movedim(1, -1))
+    lab = torch.randint(0, L - 1, shape, generator=g, device=dev)
+    if soft:
+        t = torch.rand((*shape, L), generator=g, device=dev) ** 4
+        t[..., L - 1] = 0
+        t = t / t.sum(-1, keepdim=True)
+    else:
+        t = torch.nn.functional.one_hot(lab, L).float()
+    w = torch.ones(L, device=dev)
+    w[7 % L] = 5.0
+    return leaf, logits, t[None], w / w.sum()
+
+
+def _seg_run(fn, leaf, logits, t, w, gl=(0.7, 1.3)):
+    """(losses, dL/dlogits) of fn with upstream gradients gl."""
+    losses = fn(logits, t, w)
+    (dx,) = torch.autograd.grad(losses, logits, [torch.tensor(
+        v, dtype=losses[0].dtype, device=leaf.device) for v in gl])
+    return torch.stack(losses).detach(), dx
+
+
+def _assert_seg_close(got, want, dtype):
+    from brainfm_tpu_torch.ops import segloss
+
+    (gl, gx), (wl, wx) = got, want
+    assert gx.dtype == wx.dtype == dtype and gx.shape == wx.shape
+    assert segloss.loss_excess(gl, wl) <= 0, (gl, wl)
+    excess = segloss.grad_excess(gx, wx)
+    assert excess <= 0, excess
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [72, 64, None])
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_seg_loss_kernels_match_plain(dev, dtype, width, S):
+    from brainfm_tpu_torch.ops import segloss
+
+    args = _seg_inputs(dev, dtype, S, width, soft=S == 2)
+    before = dict(kernels.LAUNCHES)
+    got = _seg_run(segloss.seg_losses, *args)
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in
+            ("seg_loss_fwd", "seg_loss_bwd")} == {"seg_loss_fwd": 1,
+                                                  "seg_loss_bwd": 1}
+    _assert_seg_close(got, _seg_run(segloss.seg_losses_plain, *args), dtype)
+
+
+@pytest.mark.parametrize("case", ["fp64", "fp32 S=5", "L=64", "L=3"])
+def test_seg_loss_kernels_other_widths(dev, case):
+    """fp64 (the card's reference phases run fp64 steps), a fifth sample
+    (a second block of samples), the most labels and a few."""
+    from brainfm_tpu_torch.ops import segloss
+
+    dtype = torch.float64 if case == "fp64" else torch.float32
+    S = 5 if case == "fp32 S=5" else 2
+    L = {"L=64": 64, "L=3": 3}.get(case, 56)
+    args = _seg_inputs(dev, dtype, S, 72, L=L, soft=case == "fp64", seed=1)
+    _assert_seg_close(_seg_run(segloss.seg_losses, *args),
+                      _seg_run(segloss.seg_losses_plain, *args), dtype)
+
+
+def test_seg_loss_kernels_at_the_flagship_shape(dev):
+    """4 samples of 160^3 x 56 bf16 logits at channel offset 5 of the
+    flagship's 72-wide head tensor."""
+    from brainfm_tpu_torch.ops import segloss
+
+    args = _seg_inputs(dev, torch.bfloat16, 4, 72, shape=(160,) * 3)
+    got = _seg_run(segloss.seg_losses, *args)
+    _assert_seg_close(got, _seg_run(segloss.seg_losses_plain, *args),
+                      torch.bfloat16)
+
+
+def test_seg_loss_kernels_repeat_bitwise(dev):
+    from brainfm_tpu_torch.ops import segloss
+
+    args = _seg_inputs(dev, torch.bfloat16, 4, 72, shape=(40, 48, 36))
+    (l1, d1), (l2, d2) = (_seg_run(segloss.seg_losses, *args)
+                          for _ in range(2))
+    assert torch.equal(l1, l2) and torch.equal(d1, d2)
+
+
+def test_seg_loss_copies_other_strides_once(dev):
+    """NCDHW logits (labels not contiguous) are copied once, counted as
+    `layout.copies`; the head view is taken where it lies."""
+    from brainfm_tpu_torch.ops import segloss
+    from brainfm_tpu_torch.utils import profiling
+
+    leaf, logits, t, w = _seg_inputs(dev, torch.bfloat16, 2, 72)
+    nc = logits.detach().movedim(-1, 1).contiguous().movedim(1, -1)
+    for x, copies in ((logits, 0), (nc.requires_grad_(True), 1)):
+        with profiling.recording():
+            got = _seg_run(segloss.seg_losses, leaf, x, t, w)
+        assert profiling.COUNTS.get("layout.copies", 0) == copies
+        assert profiling.COUNTS["loss.seg_kernel"] == 1
+        _assert_seg_close(got, _seg_run(segloss.seg_losses_plain, leaf, x,
+                                        t, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("bad", ["fp16", "labels", "target", "weights"])
+def test_seg_loss_wrapper_refuses(dev, bad):
+    from brainfm_tpu_torch.ops import segloss
+
+    x = torch.zeros((2, 4, 5, 6, 56), device=dev)
+    t = torch.zeros((1, 4, 5, 6, 56), device=dev)
+    w = torch.ones(56, device=dev)
+    if bad == "fp16":
+        x = x.half()
+    if bad == "labels":
+        x, t, w = (torch.zeros(a.shape[:-1] + (65,), device=dev)
+                   for a in (x, t, w))
+    if bad == "target":
+        t = torch.zeros((2, 4, 5, 6, 56), device=dev)
+    if bad == "weights":
+        w = w.cpu()
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises((TypeError, ValueError)):
+        segloss.seg_losses(x, t, w)
+    assert kernels.LAUNCHES == before
+
+
+def test_flagship_step_takes_the_seg_loss_kernels_once(dev):
+    """A flagship-config bf16 training step: each pass launched once,
+    `loss.seg_kernel` once, no layout copy, and no softmax kernel on the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainfm_tpu_torch.utils import profiling
+
+    args = _flagship_small(dev)
+    _step_loss_grads(*args)   # cuDNN's choices outside the count
+    before = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            profiling.recording():
+        _step_loss_grads(*args)
+        torch.cuda.synchronize(dev)
+    counts = dict(profiling.COUNTS)
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in
+            ("seg_loss_fwd", "seg_loss_bwd")} == {"seg_loss_fwd": 1,
+                                                  "seg_loss_bwd": 1}
+    assert counts["loss.seg_kernel"] == 1
+    assert counts.get("layout.copies", 0) == 0
+    names = {k.name for e in prof.events() for k in e.kernels}
+    assert any("segloss_bwd_kernel" in n for n in names), names
+    assert not any("softmax" in n.lower() for n in names), names

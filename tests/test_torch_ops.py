@@ -128,7 +128,7 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     """Libraries are compiled for sm_90a into the git-ignored build dir,
     one per source, and named by a hash of source + flags."""
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
-    assert set(kernels.SOURCES) == {"warp", "lut", "groupnorm"}
+    assert set(kernels.SOURCES) == {"warp", "lut", "groupnorm", "segloss"}
     for name in kernels.SOURCES:
         p = kernels.library_path(name)
         assert p.parent == kernels.BUILD_DIR
