@@ -36,6 +36,12 @@ class Cell:
     per_layer: list       # entries reported with --trace 1
 
 
+def is_training(traffic: dict) -> bool:
+    """A training traffic names a subject bank (`subjects`, `bank_shape`),
+    whatever its driver is called; every other traffic serves."""
+    return "subjects" in traffic and "bank_shape" in traffic
+
+
 def _for_cell(entries, cell):
     return [m for m in entries if cell in m.get("workloads", [cell])]
 

@@ -13,12 +13,18 @@ convolution's operands rounded to float8 e4m3; the synthesized batch and
 the prepared volume, float32 in the program, rounded to bfloat16), and, for training, a planted fault (the second half
 of each item's samples left out, the mean over the rest): the upper
 readings. One JSON line per seed and side on standard output.
+
+A training cell (a traffic with a subject bank) is read with its driver
+module's parts, `PROGRAM` and `REFERENCE` (drivers/train.py), so a cell
+whose driver brings its own model and reference needs no copy of this
+file.
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import os
 import shutil
@@ -46,31 +52,34 @@ def _bf16(batch):
 
 def train_readings(cell, seed, dev, control):
     traffic, cfg_tree = cell.traffic, cell.config["cfg"]
+    driver = importlib.import_module(
+        f"brainbench.drivers.{traffic['driver']}")
     subjects = tr.make_subjects(traffic, seed, dev)
     order = tr.subject_order(seed, len(subjects), tr.CHECK_STEPS)
     out = []
     t = time.perf_counter()
-    prog = tr.Program(cfg_tree, traffic, seed, dev, subjects)
-    prog_rec, batches, _ = tr.first_steps(prog, order, seed)
+    prog = driver.PROGRAM(cfg_tree, traffic, seed, dev, subjects)
+    parts = {"reference": driver.REFERENCE, "items": prog.batch_items}
+    prog_rec, batches, _, _ = tr.first_steps(prog, order, seed)
     prog.free()
     del prog
     _free()
     ref, gaps = tr.reference_steps(cfg_tree, traffic, seed, dev, subjects,
-                                   order, prog_batches=batches)
+                                   order, prog_batches=batches, **parts)
     out.append({"side": "program", "s": time.perf_counter() - t,
                 "losses": prog_rec.losses, "ref_losses": ref.losses,
                 **check.train_checks(prog_rec, ref, gaps)})
     if control:
         t = time.perf_counter()
         ctl, _ = tr.reference_steps(cfg_tree, traffic, seed, dev, subjects,
-                                    order, quant="fp8")
+                                    order, quant="fp8", **parts)
         bgap = [check.batch_gap(_bf16(b), b) for b in batches]
         out.append({"side": "control", "s": time.perf_counter() - t,
                     **check.train_checks(ctl, ref, bgap)})
         S = int(cfg_tree["generator"]["all_samples"])
         t = time.perf_counter()
         half, _ = tr.reference_steps(cfg_tree, traffic, seed, dev, subjects,
-                                     order, samples=max(1, S // 2))
+                                     order, samples=max(1, S // 2), **parts)
         out.append({"side": "half_batch", "s": time.perf_counter() - t,
                     **check.train_checks(half, ref, [0.0])})
     return out
@@ -126,6 +135,14 @@ def serve_readings(cell, seed, dev, control, requests):
     return out
 
 
+def readings(cell, seed, dev, control, requests):
+    """One seed's rows: a training cell's by `train_readings`, a serving
+    cell's by `serve_readings`."""
+    if cells.is_training(cell.traffic):
+        return train_readings(cell, seed, dev, control)
+    return serve_readings(cell, seed, dev, control, requests)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -141,11 +158,7 @@ def main(argv=None):
     seeds = [int(s) for s in args.seeds.split(",") if s]
     ctl = {int(s) for s in args.control_seeds.split(",") if s}
     for seed in seeds + sorted(ctl - set(seeds)):
-        if cell.traffic["driver"] == "train":
-            rows = train_readings(cell, seed, dev, seed in ctl)
-        else:
-            rows = serve_readings(cell, seed, dev, seed in ctl,
-                                  args.requests)
+        rows = readings(cell, seed, dev, seed in ctl, args.requests)
         for r in rows:
             print(json.dumps({"cell": cell.name, "seed": seed, **r}),
                   flush=True)

@@ -19,6 +19,12 @@ and the synthesized batches (on the host). The same object then runs the
 window. Once the window has closed and the program is freed, the plain
 reference (`brainbench/reference`) makes the same batches from the same
 subjects and generators and takes the same steps in float32 with TF32 off.
+
+A training cell of another model or launch is a driver module of its own
+that names its parts, `PROGRAM` (this module's `Program` or a subclass
+that builds its step otherwise, `Program.make_step`) and `REFERENCE` (a
+`Reference`: the plain model's builder, processors and criterion), and
+hands them to `run`; this module's are the UNet3D and UNet3D-Sep ones.
 """
 
 from __future__ import annotations
@@ -27,12 +33,15 @@ import copy
 import gc
 import time
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .. import check, inputs
 from ..record import Outcome, Spans, Window, log
+from ..reference import criterion as rc
+from ..reference import model as rm
 
 CHECK_STEPS = 3
 _ITEMS = 4       # the item generators' stream of inputs.generator
@@ -45,6 +54,20 @@ class StepRecord:
     losses: list
     grad_norms: dict
     update_norms: dict
+
+
+@dataclass(frozen=True)
+class Reference:
+    """A training cell's plain reference model: `build_model(cfg, device)
+    -> (cfg, model)` of a `reference.model.Cfg`, float32; `apply_processors
+    (out, cfg)` on its raw outputs; `make_criterion(cfg) -> (_, weight
+    dict, loss_fn)`."""
+    build_model: Callable
+    apply_processors: Callable
+    make_criterion: Callable
+
+
+REFERENCE = Reference(rm.build_model, rm.apply_processors, rc.make_criterion)
 
 
 def subject_order(seed: int, n_subjects: int, count: int) -> list:
@@ -81,7 +104,8 @@ def _host(batch):
 
 
 class Program:
-    """The port's training object and its feed."""
+    """The port's training object and its feed. `batch_items`: the items
+    one step holds (the reference takes as many)."""
 
     def __init__(self, cfg_tree, traffic, seed, device, subjects):
         from brainfm_tpu_torch.config import AttrDict
@@ -90,9 +114,7 @@ class Program:
         from brainfm_tpu_torch.synth import (SubjectBank, SynthStatic,
                                              knobs_from_cfg)
         from brainfm_tpu_torch.train.schedules import build_schedules
-        from brainfm_tpu_torch.train.step import (TrainState,
-                                                  build_optimizer,
-                                                  make_train_step)
+        from brainfm_tpu_torch.train.step import TrainState, build_optimizer
 
         self.dev, self.seed = device, seed
         cfg, model = build_model(AttrDict.from_nested(copy.deepcopy(
@@ -102,9 +124,7 @@ class Program:
                                                        device))
         _, wdict, loss_fn = make_criterion(cfg)
         opt = build_optimizer(cfg, model.parameters())
-        self.step_fn = make_train_step(
-            model, cfg, wdict, loss_fn, opt,
-            sample_accum=int(cfg.get("grad_accum_samples") or 1))
+        self.step_fn = self.make_step(model, cfg, wdict, loss_fn, opt)
         self.state = TrainState(model, opt, 0)
         self.cfg = cfg
         self.scfg = SynthStatic.from_cfg(cfg)
@@ -116,6 +136,15 @@ class Program:
             self.bank.to_device(i, device)
         self.batch_items = int(traffic["batch_items"])
         self.lr, self.wd = build_schedules(cfg, int(traffic["itr_per_epoch"]))
+
+    def make_step(self, model, cfg, wdict, loss_fn, opt):
+        """The step of `train/step.py::make_train_step`; a subclass passes
+        `critic=`, `train_stage0=` or `mesh=` here."""
+        from brainfm_tpu_torch.train.step import make_train_step
+
+        return make_train_step(
+            model, cfg, wdict, loss_fn, opt,
+            sample_accum=int(cfg.get("grad_accum_samples") or 1))
 
     def batch(self, gstep, subject):
         from brainfm_tpu_torch.train.loop import apply_condition, make_batch
@@ -150,13 +179,18 @@ class Program:
             torch.cuda.empty_cache()
 
 
+PROGRAM = Program
+
+
 def first_steps(prog, order, seed):
     """The program's first CHECK_STEPS iterations through the window's own
     calls: (StepRecord, the batches on the host, the seconds spent on the
-    check's bookkeeping)."""
+    check's bookkeeping, each iteration's seconds on the host clock up to
+    its loss read back)."""
     dev, check_s = prog.dev, 0.0
-    batches, losses = [], []
+    batches, losses, step_s = [], [], []
     for g in range(CHECK_STEPS):
+        t0 = time.perf_counter()
         batch = prog.batch(g, order[g])
         t = time.perf_counter()
         batches.append(_host(batch))
@@ -164,6 +198,7 @@ def first_steps(prog, order, seed):
         metrics = prog.step(g, batch)
         del batch
         losses.append(float(metrics["loss_total"]))
+        step_s.append(time.perf_counter() - t0)
         if g == 0:
             t = time.perf_counter()
             grad_norms = prog.first_grad_norms()
@@ -177,19 +212,19 @@ def first_steps(prog, order, seed):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    return rec, batches, check_s + time.perf_counter() - t
+    return rec, batches, check_s + time.perf_counter() - t, step_s
 
 
 def reference_steps(cfg_tree, traffic, seed, device, subjects, order,
-                    quant=None, prog_batches=None, samples=None):
+                    quant=None, prog_batches=None, samples=None,
+                    reference=REFERENCE, items=None):
     """The plain reference's first CHECK_STEPS steps on the same subjects
     and generators: (StepRecord, batch gaps against `prog_batches`).
     `quant` as reference.model.set_arithmetic; `samples` keeps only the
     first that many samples of each item (a planted fault: the rest of
-    the batch left out)."""
-    from ..reference import model as rm
+    the batch left out); `reference`: the plain model (a `Reference`);
+    `items`: the items a step holds (the traffic's `batch_items`)."""
     from ..reference.synth.batch import stack_items
-    from ..reference.criterion import make_criterion, weighted_total
     from ..reference.schedules import build_schedules
     from ..reference.synth.engine import knobs_from_cfg, synth_item
     from ..reference.synth.params import SynthStatic
@@ -199,7 +234,7 @@ def reference_steps(cfg_tree, traffic, seed, device, subjects, order,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        cfg, model = rm.build_model(rm.Cfg.from_nested(copy.deepcopy(
+        cfg, model = reference.build_model(rm.Cfg.from_nested(copy.deepcopy(
             cfg_tree)), device)
         if cfg.get("condition"):
             raise ValueError("the reference has no conditioned inputs")
@@ -207,13 +242,13 @@ def reference_steps(cfg_tree, traffic, seed, device, subjects, order,
         inputs.load_weights(model, w0)
         rm.set_arithmetic(model, quant, checkpointed=True)
         model.train()
-        _, wdict, loss_fn = make_criterion(cfg)
+        _, wdict, loss_fn = reference.make_criterion(cfg)
         scfg = SynthStatic.from_cfg(cfg)
         knobs = knobs_from_cfg(cfg, scfg, "synth")
         lr, wd = build_schedules(cfg, int(traffic["itr_per_epoch"]))
         opt = torch.optim.AdamW(model.parameters(), lr=float(lr[0]),
                                 weight_decay=float(wd[0]), foreach=False)
-        B = int(traffic["batch_items"])
+        B = int(traffic["batch_items"] if items is None else items)
         losses, gaps, grad_norms = [], [], None
         for g in range(CHECK_STEPS):
             subj = {k: torch.as_tensor(v).to(device)
@@ -233,10 +268,10 @@ def reference_steps(cfg_tree, traffic, seed, device, subjects, order,
                 tb = {k: v[b] for k, v in batch["targets"].items()}
                 for s in range(S):
                     out = model(batch["samples"]["input"][b, s:s + 1])
-                    out = rm.apply_processors(out, cfg)
+                    out = reference.apply_processors(out, cfg)
                     sb = {k: v[b, s:s + 1]
                           for k, v in batch["samples"].items()}
-                    t = weighted_total(loss_fn(out, tb, sb), wdict)
+                    t = rc.weighted_total(loss_fn(out, tb, sb), wdict)
                     (t / (S * B)).backward()
                     total += float(t.detach()) / (S * B)
                     del out, t
@@ -257,23 +292,30 @@ def reference_steps(cfg_tree, traffic, seed, device, subjects, order,
     return rec, gaps
 
 
-def run(cell, seed, seconds, trace, device, clock):
+def run(cell, seed, seconds, trace, device, clock, program=Program,
+        reference=REFERENCE):
     """One run of a training cell; `clock()` gives the seconds since the
-    process started."""
+    process started. `program`: the class of the training object (as
+    `Program`); `reference`: the plain model it is held to."""
     from ..trace import Timeline, device_trace
 
     traffic, cfg_tree = cell.traffic, cell.config["cfg"]
     dev = torch.device(device)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
+    # the set-up's parts, on the host clock between calls (no sync)
+    t_driver = clock()
     subjects = make_subjects(traffic, seed, dev)
-    prog = Program(cfg_tree, traffic, seed, dev, subjects)
+    t_subjects = clock()
+    prog = program(cfg_tree, traffic, seed, dev, subjects)
+    t_program = clock()
     horizon = CHECK_STEPS + 100_000
     order = subject_order(seed, len(subjects), horizon)
 
     # set-up: the first steps through the window's own calls
-    prog_rec, batches, check_s = first_steps(prog, order, seed)
-    setup_s = clock() - check_s
+    prog_rec, batches, check_s, step_s = first_steps(prog, order, seed)
+    t_steps = clock()
+    setup_s = t_steps - check_s
 
     # the window
     failed = 0
@@ -307,12 +349,19 @@ def run(cell, seed, seconds, trace, device, clock):
 
     t = time.perf_counter()
     ref_rec, gaps = reference_steps(cfg_tree, traffic, seed, dev, subjects,
-                                    order, prog_batches=batches)
+                                    order, prog_batches=batches,
+                                    reference=reference, items=B)
     checks = check.train_checks(prog_rec, ref_rec, gaps)
     log(f"set-up {setup_s:.2f} s (check bookkeeping {check_s:.2f} s more), "
         f"window {elapsed:.2f} s, {steps} steps, reference "
         f"{time.perf_counter() - t:.2f} s; losses {prog_rec.losses} "
         f"against {ref_rec.losses}")
+    log(f"set-up parts: to the driver {t_driver:.3f} s, subjects "
+        f"{t_subjects - t_driver:.3f} s, build and weights "
+        f"{t_program - t_subjects:.3f} s, first {CHECK_STEPS} steps "
+        f"{t_steps - t_program - check_s:.3f} s (each with its bookkeeping "
+        f"{', '.join(f'{s:.3f}' for s in step_s)} s); check bookkeeping "
+        f"{check_s:.3f} s, not in set-up")
     return Outcome(end_to_end={"setup_s": setup_s,
                                "train_items_per_s": steps * B / elapsed},
                    window=window, attempted=steps * B, failed=failed * B,

@@ -60,3 +60,4 @@ class Outcome:
     failed: int
     memory_peak_bytes: int
     checks: dict = field(default_factory=dict)   # name -> measured value
+    devices: int = 1          # the cards the run used (`device.count`)

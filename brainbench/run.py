@@ -78,7 +78,8 @@ def execute(cell, seed, seconds, trace, device, started):
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else dev.type),
-                   "count": 1, "memory_peak_bytes": out.memory_peak_bytes}
+                   "count": int(out.devices),
+                   "memory_peak_bytes": out.memory_peak_bytes}
     result = {"correct": bool(correct) and out.failed == 0,
               "attempted": out.attempted, "failed": out.failed}
     w = out.window
