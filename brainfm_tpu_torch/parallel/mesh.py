@@ -11,7 +11,8 @@ process, with the JAX package's two named axes in its data-major order:
   space - the volume's D axis split into slabs (parallel/spatial.py)
 
 A launch is one process per rank (torchrun's RANK, WORLD_SIZE,
-MASTER_ADDR, MASTER_PORT and LOCAL_RANK, or explicit arguments).
+MASTER_ADDR, MASTER_PORT and LOCAL_RANK, or explicit arguments, one
+card a rank).
 """
 
 from __future__ import annotations
@@ -54,21 +55,26 @@ def init_distributed(coordinator: str | None = None,
     MASTER_PORT; without those it does nothing and returns (0, 1), as the
     JAX function on a single host. `backend` defaults to 'nccl' when CUDA
     is available and 'gloo' otherwise; it never changes behind the
-    caller's back. On CUDA the process takes device LOCAL_RANK (0 when
-    unset). A failed launch raises."""
+    caller's back. On CUDA the process takes device LOCAL_RANK when that
+    is set (torchrun), else its rank modulo the host's device count (a
+    launch of one process per card on a single host, as
+    `torch.multiprocessing.spawn` starts them). A failed launch raises."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if coordinator:
         url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-        kw = dict(init_method=url, world_size=int(num_processes),
-                  rank=int(process_id))
+        rank = int(process_id)
+        kw = dict(init_method=url, world_size=int(num_processes), rank=rank)
     elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank = int(os.environ["RANK"])
         kw = dict(init_method="env://")
     else:
         return 0, 1
     backend = backend or default_backend()
     if torch.cuda.is_available():
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        local = os.environ.get("LOCAL_RANK")
+        torch.cuda.set_device(int(local) if local is not None
+                              else rank % torch.cuda.device_count())
     dist.init_process_group(backend=backend, **kw)
     return dist.get_rank(), dist.get_world_size()
 

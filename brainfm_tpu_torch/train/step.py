@@ -28,8 +28,12 @@ reduce-scatter averages over 'data', takes 1/space and an all_reduce over
 global gradient. The non-finite skip is one decision for every rank.
 
 A step is the span `step` over `step.forward` (the losses), `step.backward`,
-`step.check` (the non-finite check, up to its host sync) and
-`step.update` (clip and optimizer), utils/profiling.py.
+`step.check` (the non-finite check, up to its host sync; with a mesh it
+holds `step.reduce`: the losses' mean, `step.reduce.wait`, then the
+gradient SUM's all-reduces, `step.reduce.grads`, each timed on the card)
+and `step.update` (clip and optimizer), utils/profiling.py. With a mesh
+the counter `collectives` counts each collective call and `reduce.bytes`
+the gradient bytes all-reduced.
 """
 
 from __future__ import annotations
@@ -230,7 +234,8 @@ def _local(t):
 
 
 def _all_reduce_flat(tensors, group=None):
-    """SUM of every tensor over `group` in place, one bucket per dtype."""
+    """SUM of every tensor over `group` in place, one bucket per dtype;
+    counts each bucket in `collectives` and its bytes in `reduce.bytes`."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
@@ -239,17 +244,54 @@ def _all_reduce_flat(tensors, group=None):
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = _flatten_dense_tensors(ts)
-        dist.all_reduce(flat, group=group)
+        with annotate("step.reduce.grads", device=flat.device):
+            dist.all_reduce(flat, group=group)
+        count("collectives")
+        count("reduce.bytes", flat.numel() * flat.element_size())
         for t, r in zip(ts, _unflatten_dense_tensors(flat, ts)):
             t.copy_(r)
+
+
+def _check_loss_names(names, device):
+    """Raise unless every rank's items give the losses `names`: a MAX over
+    the world of (count, crc32, -count, -crc32) of the sorted names, one
+    collective of a fixed size and one counted host sync."""
+    import zlib
+
+    import torch.distributed as dist
+
+    sig = [len(names), zlib.crc32("\0".join(names).encode())]
+    sig += [-v for v in sig]
+    # filled on the card, not copied from the host: no host sync
+    got = torch.stack([torch.full((), v, dtype=torch.int64, device=device)
+                       for v in sig])
+    dist.all_reduce(got, op=dist.ReduceOp.MAX)
+    count("collectives")
+    count("host_syncs")
+    if got.tolist() != sig:
+        raise ValueError(f"the ranks' items give different losses (this "
+                         f"rank's: {names}): a batch's items must share "
+                         "their targets")
 
 
 def _reduce_over_mesh(grads, total, losses, mesh):
     """The world's SUM of the gradients (their shares, see the module
     docstring), and the global batch's losses: the mean over the ranks
-    (equal on the ranks of one space group)."""
+    (equal on the ranks of one space group; the step has checked once
+    that every rank has the same losses, _check_loss_names). The losses
+    go first: their all-reduce (the span `step.reduce.wait`) is where a
+    card waits for the slowest rank, so the gradient buckets' all-reduces
+    after it (`step.reduce.grads`) time the transfer alone."""
     import torch.distributed as dist
 
+    n = dist.get_world_size()
+    names = sorted(losses)
+    vals = torch.stack([torch.as_tensor(total)]
+                       + [torch.as_tensor(losses[k]) for k in names])
+    with annotate("step.reduce.wait", device=vals.device):
+        dist.all_reduce(vals)
+    count("collectives")
+    vals = vals / n
     if any(hasattr(g, "to_local") for g in grads):
         # FSDP2 reduce-scattered over 'data' in the backward
         if axis_size(mesh, "space") > 1:
@@ -257,17 +299,6 @@ def _reduce_over_mesh(grads, total, losses, mesh):
                              mesh.get_group("space"))
     else:
         _all_reduce_flat(grads)
-    n = dist.get_world_size()
-    names = sorted(losses)
-    every = [None] * n
-    dist.all_gather_object(every, names)
-    if any(e != names for e in every):
-        raise ValueError(f"the ranks' items give different losses {every}: "
-                         "a batch's items must share their targets")
-    vals = torch.stack([torch.as_tensor(total)]
-                       + [torch.as_tensor(losses[k]) for k in names])
-    dist.all_reduce(vals)
-    vals = vals / n
     return vals[0], {k: vals[i + 1] for i, k in enumerate(names)}
 
 
@@ -277,8 +308,9 @@ def _finite_update(state: TrainState, total, losses, lr, wd, clip,
     params, every optimizer state tensor and state.step stay bitwise as
     they were, the losses report NaN and 'skipped' 1 (0 otherwise). The
     check is one host sync per step. With a mesh the gradients and
-    losses are reduced first and the skip is decided for every rank at
-    once (a MAX of the non-finite flag over the world)."""
+    losses are reduced first (the span `step.reduce`, timed on the card)
+    and the skip is decided for every rank at once (a MAX of the
+    non-finite flag over the world)."""
     model, optimizer = state.model, state.optimizer
     with annotate("step.check"):
         params = [p for p in model.parameters() if p.requires_grad]
@@ -287,7 +319,8 @@ def _finite_update(state: TrainState, total, losses, lr, wd, clip,
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if mesh is not None:
-            total, losses = _reduce_over_mesh(grads, total, losses, mesh)
+            with annotate("step.reduce", device=grads[0].device):
+                total, losses = _reduce_over_mesh(grads, total, losses, mesh)
         total = torch.as_tensor(total)
         ok = torch.stack([torch.isfinite(total).all()]
                          + [torch.isfinite(_local(g)).all()
@@ -298,6 +331,7 @@ def _finite_update(state: TrainState, total, losses, lr, wd, clip,
             bad = (~ok).to(total.dtype if total.is_floating_point()
                            else torch.float32).reshape(1)
             dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+            count("collectives")
             ok = bad[0] == 0
         count("host_syncs")
         finite = bool(ok)
@@ -365,11 +399,14 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
         with annotate("step.backward"):
             (t if mesh is None else t * scale(model)).backward()
 
+    names_checked = False   # the ranks' loss names, checked once
+
     def step(state: TrainState, batch, lr, wd):
         with annotate("step"):
             return one_step(state, batch, lr, wd)
 
     def one_step(state: TrainState, batch, lr, wd):
+        nonlocal names_checked
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -395,6 +432,9 @@ def make_train_step(model, cfg, weight_dict, loss_fn: Callable, optimizer,
             total = torch.mean(torch.stack(totals))
             losses = {kk: torch.mean(torch.stack([p[kk] for p in parts]))
                       for kk in parts[0]}
+        if mesh is not None and not names_checked:
+            _check_loss_names(sorted(losses), total.device)
+            names_checked = True
         return _finite_update(state, total, losses, lr, wd, clip, mesh)
 
     return step

@@ -758,3 +758,128 @@ def train_small(out_dir, mesh=None):
     finally:
         loop.make_train_step = make
     return steps
+
+
+# ------------------------------------------- the data-parallel flagship step
+
+DP_SEED = 2600000017
+DP_LR, DP_WD = 1e-3, 1e-2
+
+
+def dp_tree():
+    """The benchmark's `joint` configuration tree (brainbench/configs/
+    joint.json) cut to f_maps 8, 2 levels and a 16^3 crop, no autocast."""
+    import json
+
+    with open(os.path.join(ROOT, "brainbench", "configs", "joint.json")) as f:
+        tree = json.load(f)["cfg"]
+    tree["f_maps"], tree["num_levels"], tree["task_f_maps"] = 8, 2, [8]
+    tree["generator"]["size"] = [16, 16, 16]
+    tree["amp"] = False
+    return tree
+
+
+def dp_port(tree, device="cpu", dtype=torch.float64):
+    """The port's model of `tree` in `dtype` on `device` with the
+    benchmark's seeded weights: (cfg, model, weight dict, loss fn,
+    AdamW)."""
+    from brainbench import inputs
+    from brainfm_tpu_torch.config import AttrDict
+    from brainfm_tpu_torch.models import build_model
+    from brainfm_tpu_torch.models.criterion import make_criterion
+    from brainfm_tpu_torch.train.step import build_optimizer
+
+    cfg, model = build_model(AttrDict.from_nested(tree), device=device)
+    inputs.load_weights(model, inputs.seed_weights(
+        inputs.weight_specs(model), DP_SEED, device))
+    model.to(dtype)
+    _, w, fn = make_criterion(cfg)
+    return cfg, model, w, fn, build_optimizer(cfg, model.parameters())
+
+
+def dp_batches(tree, steps=2, items=2):
+    """Each step's union batch, as the benchmark's training cells make it:
+    `items` items from their per-item generators over one seeded 20^3
+    subject in a 24^3 bank, lifted to fp64."""
+    from brainbench.drivers import train as tr
+    from brainfm_tpu_torch.config import AttrDict
+    from brainfm_tpu_torch.models import build_model
+    from brainfm_tpu_torch.synth import (SubjectBank, SynthStatic,
+                                         knobs_from_cfg)
+    from brainfm_tpu_torch.train.loop import make_batch
+
+    cfg, _ = build_model(AttrDict.from_nested(tree), device="meta")
+    scfg = SynthStatic.from_cfg(cfg)
+    bank = SubjectBank((24, 24, 24))
+    bank.subjects.extend(tr.make_subjects(
+        {"subjects": 1, "extent": [20, 20, 20], "bank_shape": [24, 24, 24]},
+        DP_SEED, torch.device("cpu")))
+    knobs = knobs_from_cfg(cfg, scfg, "synth")
+    out = []
+    for g in range(steps):
+        b = make_batch(tr.item_generators(DP_SEED, g, items, "cpu"),
+                       bank.to_device(0, "cpu"), scfg, tuple(cfg.tasks),
+                       "synth", knobs)
+        out.append({k: {n: (t.double() if t.is_floating_point() else t)
+                        for n, t in b[k].items()}
+                    for k in ("samples", "targets")})
+    return out
+
+
+def adam_grads(model, opt):
+    """Each parameter's first gradient as AdamW holds it after one step."""
+    beta1 = opt.param_groups[0]["betas"][0]
+    return {n: opt.state[p]["exp_avg"] / (1.0 - beta1)
+            for n, p in model.named_parameters()}
+
+
+def rank_dp_step(rank, world, tmp):
+    """make_train_step(mesh=) data=world at fp64 over 2 steps of the union
+    batches, each rank on its own items: the losses, the first gradient,
+    the parameters' change; per step, recorded, the names of the
+    `step.reduce` spans and the spans under it in the order they start,
+    the counters and the object collectives called; the loss-name check
+    on ranks whose losses differ."""
+    import torch.distributed as dist
+
+    from brainfm_tpu_torch.parallel import make_mesh
+    from brainfm_tpu_torch.parallel.mesh import shard_batch
+    from brainfm_tpu_torch.train import step as st
+    from brainfm_tpu_torch.utils import profiling
+
+    mesh = make_mesh(world, 1)
+    tree = dp_tree()
+    cfg, model, w, fn, opt = dp_port(tree)
+    w0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = st.make_train_step(model, cfg, w, fn, opt, mesh=mesh)
+    state = st.TrainState(model, opt, 0)
+    objects = []
+    gather_object = dist.all_gather_object
+    dist.all_gather_object = lambda *a, **k: (objects.append(1),
+                                              gather_object(*a, **k))[1]
+    out = {"losses": [], "counts": [], "reduce_spans": [], "objects": []}
+    try:
+        for g, batch in enumerate(dp_batches(tree, items=2 * world)):
+            with profiling.recording():
+                state, met = step(state, shard_batch(mesh, batch), DP_LR,
+                                  DP_WD)
+            out["losses"].append(float(met["loss_total"]))
+            out["counts"].append(dict(profiling.COUNTS))
+            out["reduce_spans"].append([
+                s.name for s in sorted(profiling.SPANS, key=lambda s: s.t0)
+                if s.name.startswith("step.reduce")])
+            out["objects"].append(len(objects))
+            if g == 0:
+                out["grads"] = adam_grads(model, opt)
+    finally:
+        dist.all_gather_object = gather_object
+    out["update"] = {n: p.detach() - w0[n]
+                     for n, p in model.named_parameters()}
+    out["grad_bytes"] = sum(p.numel() * p.element_size()
+                            for p in model.parameters() if p.requires_grad)
+    try:
+        st._check_loss_names(["loss_a", "loss_b"][:rank + 1],
+                             torch.device("cpu"))
+    except ValueError as e:
+        out["names_error"] = str(e)
+    return out

@@ -793,3 +793,52 @@ def test_flagship_step_takes_the_seg_loss_kernels_once(dev):
     names = {k.name for e in prof.events() for k in e.kernels}
     assert any("segloss_bwd_kernel" in n for n in names), names
     assert not any("softmax" in n.lower() for n in names), names
+
+
+def test_host_syncs_count_a_one_rank_nccl_mesh_step(dev):
+    """A data-parallel step over NCCL (one rank, its own card): the
+    `host_syncs` counter equals the synchronizing calls that sync debug
+    mode "warn" reports, at a step function's first call (with the loss
+    names' check) and at a later one; one `step.reduce` span and one of
+    each span under it (the losses' and the gradient bucket's
+    all-reduces) timed on the card."""
+    import torch.distributed as dist
+
+    import _torch_dist as td
+    from brainfm_tpu_torch.parallel import mesh as pm
+    from brainfm_tpu_torch.train import step as st
+    from brainfm_tpu_torch.utils import profiling
+    from test_torch_profiling import _SyncWarnings
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already open in this process")
+    assert pm.init_distributed(f"localhost:{td.free_port()}", 1, 0,
+                               backend="nccl") == (0, 1)
+    try:
+        mesh = pm.make_mesh(data=1)
+        tree = td.dp_tree()
+        tree["amp"] = True
+        cfg, model, w, fn, opt = td.dp_port(tree, dev, torch.float32)
+        batches = [{k: {n: t.to(dev, torch.float32 if t.is_floating_point()
+                                else t.dtype) for n, t in b[k].items()}
+                    for k in b} for b in td.dp_batches(tree, steps=3)]
+        state = st.TrainState(model, opt, 0)
+        step = st.make_train_step(model, cfg, w, fn, opt, mesh=mesh)
+        state, _ = step(state, batches[0], td.DP_LR, td.DP_WD)   # warm
+        missed = {}
+        for what, fn_, batch in (
+                ("later step", step, batches[1]),
+                ("first call", st.make_train_step(model, cfg, w, fn, opt,
+                                                  mesh=mesh), batches[2])):
+            with profiling.recording(), _SyncWarnings() as sw:
+                state, _ = fn_(state, batch, td.DP_LR, td.DP_WD)
+            counted = profiling.COUNTS.get("host_syncs", 0)
+            if counted != sw.n:
+                missed[what] = (counted, sw.n, sw.sites, sw.outside)
+            for name in ("step.reduce", "step.reduce.wait",
+                         "step.reduce.grads"):
+                spans = [s for s in profiling.SPANS if s.name == name]
+                assert len(spans) == 1 and spans[0].device_ms() > 0, name
+        assert not missed, missed
+    finally:
+        dist.destroy_process_group()
